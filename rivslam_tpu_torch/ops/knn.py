@@ -1,0 +1,36 @@
+"""Masked nearest-neighbour search, plain torch (port of ``rivslam_tpu/ops/knn.py``).
+
+Brute force in the expanded form ||a-b||^2 = |a|^2 + |b|^2 - 2 a.b with the
+cross term one batched matmul (full float32; the port keeps TF32 off).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[..., N, 3] x [..., M, 3] -> [..., N, M] squared distances."""
+    cross = torch.einsum("...nd,...md->...nm", a, b)
+    na = torch.sum(a * a, dim=-1)
+    nb = torch.sum(b * b, dim=-1)
+    d2 = na[..., :, None] + nb[..., None, :] - 2.0 * cross
+    return torch.clamp_min(d2, 0.0)
+
+
+def nearest_neighbor(
+    query: torch.Tensor,
+    ref: torch.Tensor,
+    ref_mask: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """For each query point, the exact nearest valid ref point.
+
+    Returns (idx [..., N] int32, sqdist [..., N]). Invalid refs never win
+    (their distance is +inf); the first index wins a tie. If no valid ref
+    exists idx is arbitrary and sqdist inf.
+    """
+    d2 = pairwise_sqdist(query, ref)
+    d2 = torch.where(ref_mask[..., None, :], d2, torch.inf)
+    idx = torch.argmin(d2, dim=-1)
+    best = torch.take_along_dim(d2, idx[..., None], dim=-1)[..., 0]
+    return idx.to(torch.int32), best

@@ -1,0 +1,177 @@
+"""PyTorch port point ops against the JAX package on the CPU: PLANE
+regularization, nearest-neighbour search, and K1's plain twin against the
+Pallas kernel run in interpret mode (mirroring tests/test_pallas_nn.py)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rivslam_tpu.ops import eig3 as ref_eig3
+from rivslam_tpu.ops import knn as ref_knn
+from rivslam_tpu.ops import pallas_nn
+from rivslam_tpu_torch.ops import eig3, knn, nn_gather
+
+# d2 tolerances of tests/test_pallas_nn.py: the interpreted kernel's cross
+# term is an XLA dot, the twin's three separately rounded products; features
+# of a unique winner are copied exactly.
+D2_RTOL, D2_ATOL, G_TOL = 1e-4, 1e-3, 1e-5
+
+
+def _covariances(kind, n=300):
+    """float64: random PSD 3x3s (as tests/test_eig3.py) plus the degenerate
+    zero, isotropic and rank-2 planar matrices that take the fallback
+    branches; float32: the disc-shaped covariances a scan produces
+    (eigenvalues 1, 0.5 and 1e-3 in random orientations)."""
+    rng = np.random.default_rng(0)
+    if kind == "psd64":
+        A = rng.normal(size=(n, 3, 3))
+        C = A @ np.swapaxes(A, 1, 2)
+        Q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        C[0], C[1], C[2] = 0.0, 2.0 * np.eye(3), Q @ np.diag([4.0, 4.0, 0.0]) @ Q.T
+        return C
+    Q, _ = np.linalg.qr(rng.normal(size=(n, 3, 3)))
+    return (Q @ (np.array([1.0, 0.5, 1e-3])[:, None] * np.swapaxes(Q, 1, 2))).astype(np.float32)
+
+
+# the same closed-form formulas in two libraries: float64 agrees to rounding;
+# float32 to the rounding of arccos/cos and the cross products at |C| ~ 1
+@pytest.mark.parametrize("kind,atol", [("psd64", 1e-9), ("disc32", 1e-5)])
+def test_plane_regularize_soa_matches_reference(kind, atol):
+    C = _covariances(kind)
+    comps = [C[:, 0, 0], C[:, 0, 1], C[:, 0, 2], C[:, 1, 1], C[:, 1, 2], C[:, 2, 2]]
+    want = ref_eig3.plane_regularize_soa(*map(jnp.asarray, comps), 1e-3)
+    got = eig3.plane_regularize_soa(*map(torch.as_tensor, comps), 1e-3)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.as_tensor(C).dtype
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=atol)
+
+
+def test_pairwise_and_nearest_neighbor_match_reference():
+    rng = np.random.default_rng(3)
+    q = (rng.normal(size=(2, 300, 3)) * 10).astype(np.float32)
+    r = (rng.normal(size=(2, 700, 3)) * 10).astype(np.float32)
+    mask = rng.uniform(size=(2, 700)) > 0.2
+    want = np.asarray(ref_knn.pairwise_sqdist(jnp.asarray(q), jnp.asarray(r)))
+    got = knn.pairwise_sqdist(torch.as_tensor(q), torch.as_tensor(r)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3)
+    idx_w, d2_w = ref_knn.nearest_neighbor(jnp.asarray(q), jnp.asarray(r), jnp.asarray(mask))
+    idx, d2 = knn.nearest_neighbor(torch.as_tensor(q), torch.as_tensor(r), torch.as_tensor(mask))
+    assert idx.dtype == torch.int32
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_w))
+    np.testing.assert_allclose(d2.numpy(), np.asarray(d2_w), rtol=1e-5, atol=1e-3)
+
+
+# ---- K1's plain twin vs fused_gather_pallas(interpret=True) ----------------
+
+
+def _k1_pair(q, r, mask, feats):
+    """Per problem, the interpreted Pallas kernel; batched, the port's twin."""
+    want = [
+        pallas_nn.fused_gather_pallas(
+            jnp.asarray(q[b]), jnp.asarray(r[b]), jnp.asarray(mask[b]),
+            jnp.asarray(feats[b]), interpret=True,
+        )
+        for b in range(q.shape[0])
+    ]
+    d2, g = nn_gather.fused_gather(*map(torch.as_tensor, (q, r, mask, feats)))
+    return d2.numpy(), g.numpy(), np.stack([np.asarray(w[0]) for w in want]), \
+        np.stack([np.asarray(w[1]) for w in want])
+
+
+def _cloud(rng, shape, scale=10.0):
+    return (rng.normal(size=shape) * scale).astype(np.float32)
+
+
+@pytest.mark.parametrize(
+    "n,m",
+    [(300, 700), (97, 513), (200, 1500)],  # as test_pallas_nn; ragged; two TPU tiles
+)
+def test_fused_gather_plain_matches_pallas(n, m):
+    rng = np.random.default_rng(n + m)
+    q, r = _cloud(rng, (2, n, 3)), _cloud(rng, (2, m, 3))
+    mask = rng.uniform(size=(2, m)) > 0.15
+    feats = rng.normal(size=(2, 9, m)).astype(np.float32)
+    d2, g, d2_w, g_w = _k1_pair(q, r, mask, feats)
+    np.testing.assert_allclose(d2, d2_w, rtol=D2_RTOL, atol=D2_ATOL)
+    np.testing.assert_allclose(g, g_w, rtol=G_TOL, atol=G_TOL)
+    # and against argmin + fancy-index gather in float64
+    D = ((q[:, :, None, :].astype(np.float64) - r[:, None, :, :]) ** 2).sum(-1)
+    D[~np.broadcast_to(mask[:, None, :], D.shape)] = np.inf
+    idx = D.argmin(-1)
+    np.testing.assert_allclose(d2, D.min(-1), rtol=D2_RTOL, atol=D2_ATOL)
+    np.testing.assert_allclose(g, np.stack([feats[b][:, idx[b]] for b in range(2)]), atol=G_TOL)
+
+
+def test_fused_gather_plain_ties_average():
+    """Exact ties are averaged, within a tile and across the 1024-target tiles."""
+    q = np.zeros((1, 2, 3), np.float32)
+    q[0, 1] = [5.0, 5.0, 5.0]
+    r = np.full((1, 1100, 3), 50.0, np.float32)
+    r[0, 0] = [1.0, 0.0, 0.0]
+    r[0, 1] = [-1.0, 0.0, 0.0]
+    r[0, 1050] = [0.0, 1.0, 0.0]  # third tie, in the second tile
+    r[0, 7] = r[0, 1090] = [5.0, 5.0, 5.0]  # query 1 sits on a duplicated point
+    feats = np.zeros((1, 1, 1100), np.float32)
+    feats[0, 0, [0, 1, 1050, 7, 1090]] = [10.0, 20.0, 60.0, 3.0, 5.0]
+    d2, g, d2_w, g_w = _k1_pair(q, r, np.ones((1, 1100), bool), feats)
+    np.testing.assert_allclose(d2[0, 0], 1.0, atol=1e-6)
+    np.testing.assert_allclose(g[0, 0], [30.0, 4.0], atol=G_TOL)
+    np.testing.assert_allclose(g, g_w, atol=G_TOL)
+    np.testing.assert_allclose(d2, d2_w, rtol=D2_RTOL, atol=D2_ATOL)
+
+
+def test_fused_gather_plain_all_masked():
+    rng = np.random.default_rng(9)
+    q, r = _cloud(rng, (2, 64, 3), 1.0), _cloud(rng, (2, 128, 3), 1.0)
+    mask = np.zeros((2, 128), bool)
+    mask[1, ::3] = True  # problem 1 keeps a third of its targets
+    feats = rng.normal(size=(2, 5, 128)).astype(np.float32)
+    d2, g, d2_w, g_w = _k1_pair(q, r, mask, feats)
+    assert (d2[0] > 1e29).all() and (d2_w[0] > 1e29).all()
+    np.testing.assert_array_equal(g[0], 0.0)
+    np.testing.assert_allclose(g[1], g_w[1], atol=G_TOL)
+
+
+def test_fused_gather_on_cpu_uses_the_twin_and_counts_no_launch():
+    rng = np.random.default_rng(4)
+    args = [torch.as_tensor(a) for a in (
+        _cloud(rng, (3, 50, 3)), _cloud(rng, (3, 80, 3)),
+        rng.uniform(size=(3, 80)) > 0.3, rng.normal(size=(3, 9, 80)).astype(np.float32),
+    )]
+    before = nn_gather.fused_gather.launches
+    d2, g = nn_gather.fused_gather(*args)
+    d2_p, g_p = nn_gather.fused_gather_plain(*args)
+    assert nn_gather.fused_gather.launches == before
+    assert torch.equal(d2, d2_p) and torch.equal(g, g_p)
+    assert d2.shape == (3, 50) and g.shape == (3, 9, 50)
+
+
+@pytest.mark.parametrize(
+    "bad",
+    ["query_shape", "ref_batch", "mask_dtype", "feats_m"],
+)
+def test_fused_gather_rejects_bad_inputs(bad):
+    q, r = torch.zeros(2, 10, 3), torch.zeros(2, 20, 3)
+    m, f = torch.ones(2, 20, dtype=torch.bool), torch.zeros(2, 9, 20)
+    if bad == "query_shape":
+        q = torch.zeros(2, 10, 4)
+    elif bad == "ref_batch":
+        r = torch.zeros(3, 20, 3)
+    elif bad == "mask_dtype":
+        m = m.float()
+    else:
+        f = torch.zeros(2, 9, 21)
+    with pytest.raises(ValueError):
+        nn_gather.fused_gather(q, r, m, f)
+
+
+def test_library_path_follows_the_source(tmp_path, monkeypatch):
+    """A changed source gets a new build key, so a stale library is never loaded."""
+    src = tmp_path / "k.cu"
+    src.write_text("// v1\n")
+    monkeypatch.setattr(nn_gather, "SOURCE", str(src))
+    p1 = nn_gather.library_path()
+    src.write_text("// v2\n")
+    assert nn_gather.library_path() != p1
+    assert p1.startswith(nn_gather.BUILD_DIR) and p1.endswith(".so")
