@@ -4,7 +4,8 @@
 
 Phases, each announced by a flushed "== phase" line:
   1. device   the card's name and power limit (nvidia-smi) and device count;
-  2. build    K1 (csrc/nn_gather.cu) with nvcc, its wall time and ptxas report;
+  2. build    K1 (csrc/nn_gather.cu) and K3 (csrc/nn_argmin.cu), one nvcc
+              each, started together; wall times and ptxas reports;
   3. data     bench.py's protocol: B=256 frame pairs, capacity N=M=1024,
               from the port's numpy copy of the simulator;
   4. K1       the kernel against its plain twin on the card, on the main
@@ -15,7 +16,17 @@ Phases, each announced by a flushed "== phase" line:
               flag-off path and a small input against the CPU run;
   6. timing   CUDA-event times: frames/s with the kernel on and off, K1 per
               launch beside its plain twin, the flag-off correspondence step
-              (library_ms) and the least time the card could take (bound_ms).
+              (library_ms) and the least time the card could take (bound_ms);
+  7. engine   the per-frame SLAM engine (Engine + replay) over the "cp"
+              validation course at full width (capacity 1024, IMU capacity
+              64, window 6), launch counts read around the run: ATE against
+              the simulator's ground truth (held to 1.5x the JAX engine's),
+              keyframes, converged share, per-frame latency, frames/s, peak
+              memory; then its first 8 frames on the card against the CPU;
+  8. K3       the kernel against its plain twin on the card: the engine's
+              fitness inputs, B=256, ragged, masked and exact-tie cases;
+  9. K3 time  per launch at the engine's shape and at B=256, the plain twin,
+              the bmm + masked argmin composition, and the bound.
 
 Any failed check raises, and the script then exits non-zero without a
 result. The line before the last is a JSON object listing the kernels; the
@@ -42,6 +53,19 @@ D2_RTOL, D2_ATOL = 1e-4, 1e-6  # d2: relative, with a floor for d2 near 0
 G_ATOL = 1e-5  # gathered features (exact ties are means of a few values)
 MIN_CONVERGED = 0.9
 MAX_MEDIAN_TERR_M = 0.1
+# the engine phase: the "cp" validation course (rivslam_tpu/eval/validation.py:42)
+COURSE = dict(seed=21, radius=8.0, omega=0.25, dt=0.25, n_frames=120, capacity=1024,
+              world_points=20000, extent=30.0)
+ENGINE_CAPACITY, ENGINE_IMU_CAPACITY, ENGINE_SEED = 1024, 64, 0
+# full-trajectory ATE of the JAX engine on this course, configuration and
+# seeds, float32 on the CPU (`python tests/test_torch_engine.py`)
+REF_ATE_M = 0.7365842276827688
+MAX_ATE_RATIO = 1.5
+CPU_FRAMES = 8
+# card vs CPU on the first frames: float32 rounding of the isolated points'
+# covariances moves poses by cm (tests/test_torch_engine.py), so the gap is
+# held to twice the CPU's own float32-vs-float64 gap, plus 2 cm
+CPU_BAND_FACTOR, CPU_BAND_FLOOR_M = 2.0, 0.02
 
 
 def phase(name: str) -> None:
@@ -131,6 +155,56 @@ def k1_cases(nn_gather, dev):
     return max(errs)
 
 
+def compare_k3(name, nn_argmin, q, r, m):
+    """K3 against its plain twin: d2 bitwise, idx equal. Returns max|d2 err|."""
+    idx, d2 = nn_argmin.nearest_neighbor(q, r, m)
+    pidx, pd2 = nn_argmin.nearest_neighbor_plain(q, r, m)
+    torch.cuda.synchronize()
+    err = (d2 - pd2).abs().max().item()
+    check(err == 0.0, f"K3 {name}: d2 differs from the plain twin by {err}")
+    check(bool(torch.equal(idx, pidx)), f"K3 {name}: idx differs from the plain twin "
+          f"at {int((idx != pidx).sum())} queries")
+    say(f"K3 {name}: B,N,M={tuple(q.shape[:2]) + (r.shape[1],)} max|d2-plain|={err:.3e}, idx equal")
+    return err, idx, d2
+
+
+def k3_cases(nn_argmin, dev):
+    """B=256 at full width, ragged sizes, masked refs and injected exact ties."""
+    rng = np.random.default_rng(8)
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=dev)
+    errs = []
+    q, r = t(rng.normal(size=(256, 1024, 3)) * 10), t(rng.normal(size=(256, 1024, 3)) * 10)
+    errs.append(compare_k3("B=256", nn_argmin, q, r, t(rng.uniform(size=(256, 1024)) > 0.1, torch.bool))[0])
+    q, r = t(rng.normal(size=(3, 1000, 3)) * 10), t(rng.normal(size=(3, 1500, 3)) * 10)
+    errs.append(compare_k3("ragged", nn_argmin, q, r, t(rng.uniform(size=(3, 1500)) > 0.15, torch.bool))[0])
+    m = t(np.stack([np.zeros(1500, bool), rng.uniform(size=1500) > 0.5, np.ones(1500, bool)]), torch.bool)
+    err, idx, d2 = compare_k3("masked", nn_argmin, q, r, m)
+    check(bool((d2[0] == 1e30).all()) and bool((idx[0] == 0).all()),
+          "K3 masked: a problem without valid refs must give d2 1e30 and idx 0")
+    check(bool(m[1][idx[1].long()].all()), "K3 masked: a masked ref won")
+    errs.append(err)
+    # exact ties: refs 512..767 copy refs 0..255 (across the 512-ref tile),
+    # 300..349 copy 0..49; queries 0..255 sit on refs 0..255: the first wins
+    rr = rng.normal(size=(2, 1100, 3)) * 10
+    rr[:, 512:768] = rr[:, :256]
+    rr[:, 300:350] = rr[:, :50]
+    qq = rng.normal(size=(2, 700, 3)) * 10
+    qq[:, :256] = rr[:, :256]
+    err, idx, _ = compare_k3("ties", nn_argmin, t(qq), t(rr), torch.ones((2, 1100), dtype=torch.bool, device=dev))
+    check(bool((idx[:, :256] == torch.arange(256, device=dev)).all()), "K3 ties: the first index must win")
+    errs.append(err)
+    return max(errs)
+
+
+def engine_cfg(presets):
+    """The slice's configuration: the "cp" preset, loop closure off, K1 on."""
+    cfg = presets.get("cp")
+    return dataclasses.replace(
+        cfg, loop=dataclasses.replace(cfg.loop, enable=False),
+        registration=dataclasses.replace(cfg.registration, use_pallas_correspondence=True),
+    )
+
+
 def run_main(apdgicp, cfg, data, guess, dev):
     src_xyz, src_mask, tgt_xyz, tgt_mask = data
     tgt = apdgicp.prepare(tgt_xyz, tgt_mask, cfg, device=dev)
@@ -146,8 +220,11 @@ def main() -> None:
     from rivslam_tpu_torch.core.config import RegistrationConfig
     from rivslam_tpu_torch.core.pointcloud import SENTINEL
     from rivslam_tpu_torch.frontend import apdgicp
-    from rivslam_tpu_torch.io import synthetic
-    from rivslam_tpu_torch.ops import nn_gather
+    from rivslam_tpu_torch import pipeline, presets
+    from rivslam_tpu_torch.core import lie
+    from rivslam_tpu_torch.eval import ate
+    from rivslam_tpu_torch.io import datasets, synthetic
+    from rivslam_tpu_torch.ops import nn_argmin, nn_gather
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -163,10 +240,15 @@ def main() -> None:
     card = f"[{smi}]"
 
     phase("2 build")
-    built = nn_gather.build()
-    say(f"nvcc built {os.path.relpath(built.path)} in {built.seconds:.2f} s")
-    for ln in built.ptxas:
-        say(f"  {ln}")
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
+        builds = {name: pool.submit(mod.build) for name, mod in (("K1", nn_gather), ("K3", nn_argmin))}
+        builds = {name: fut.result() for name, fut in builds.items()}
+    for name, built in builds.items():
+        say(f"{name}: nvcc built {os.path.relpath(built.path)} in {built.seconds:.2f} s")
+        for ln in built.ptxas:
+            say(f"  {ln}")
 
     phase("3 data")
     t0 = time.perf_counter()
@@ -192,7 +274,7 @@ def main() -> None:
     phase("5 main path")
     results, launches = {}, {}
     torch.cuda.reset_peak_memory_stats()
-    nn_gather.fused_gather.launches = 0
+    nn_gather.fused_gather.launches = nn_argmin.nearest_neighbor.launches = 0
     for cov in ("KNN", "RBF"):
         cfg = dataclasses.replace(cfg_on, covariance_method=cov)
         before = nn_gather.fused_gather.launches
@@ -201,6 +283,7 @@ def main() -> None:
         launches[cov] = nn_gather.fused_gather.launches - before
         results[cov] = res
     total_launches = nn_gather.fused_gather.launches
+    say(f"scan-match path launches: K1 {total_launches}, K3 {nn_argmin.nearest_neighbor.launches}")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     check(total_launches > 0, "the main path never launched K1")
     for cov, res in results.items():
@@ -280,22 +363,127 @@ def main() -> None:
         f"{k1_bytes:.3e} bytes) at B,N,M,F={Bk},{N},{M},{F} {card}")
     say(f"K1 launches per batch of {B} scan matches: KNN {launches['KNN']}, RBF {launches['RBF']} "
         f"({per_batch / B:.3f} per frame)")
+    k1 = {"ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+          "library_ms": library_ms}
+
+    phase("7 engine")
+    t0 = time.perf_counter()
+    seq, _ = synthetic.simulate_sequence(**COURSE)
+    n_frames = seq.num_frames
+    say(f"cp course: {n_frames} frames, {len(seq.imu_stamps)} IMU samples, simulated in "
+        f"{time.perf_counter() - t0:.2f} s")
+    cfg_e = engine_cfg(presets)
+    eng = pipeline.Engine(cfg_e, seed=ENGINE_SEED, device=dev)
+    events, wall = [torch.cuda.Event(enable_timing=True)], []
+
+    def tick(i, n):  # replay calls this after each frame; process_frame has synced
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        wall.append(time.perf_counter())
+
+    torch.cuda.reset_peak_memory_stats()
+    nn_gather.fused_gather.launches = nn_argmin.nearest_neighbor.launches = 0
+    wall.append(time.perf_counter())
+    events[0].record()
+    outs = datasets.replay(eng, seq, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY, progress=tick)
+    torch.cuda.synchronize()
+    k1_eng, k3_eng = nn_gather.fused_gather.launches, nn_argmin.nearest_neighbor.launches
+    engine_s = wall[-1] - wall[0]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    wall_ms = np.diff(wall) * 1e3
+    ev_ms = np.array([a.elapsed_time(b) for a, b in zip(events[:-1], events[1:])])
+    ts, poses = eng.trajectory()
+    check(poses.shape == (n_frames, 4, 4) and np.isfinite(poses).all(), "engine: non-finite poses")
+    gt = np.linalg.inv(seq.gt_poses[0]) @ seq.gt_poses
+    gt = gt[[int(np.argmin(np.abs(seq.gt_stamps - t))) for t in ts]]
+    full_ate = ate.ate(poses[:, :3, 3], gt[:, :3, 3])
+    n_kf = sum(o["is_keyframe"] for o in outs)
+    conv = float(np.mean([o["registration_ok"] for o in outs[1:]]))
+    say(f"engine: {n_frames} frames in {engine_s:.2f} s = {n_frames / engine_s:.2f} frames/s; "
+        f"full ATE {full_ate['rmse']:.4f} m (JAX engine on the CPU: {REF_ATE_M:.4f} m, limit "
+        f"{MAX_ATE_RATIO}x); keyframes {n_kf}; converged share {conv:.4f}")
+    say(f"engine launches: K1 {k1_eng} ({k1_eng / n_frames:.2f} per frame), K3 {k3_eng} "
+        f"({k3_eng / n_frames:.2f} per frame)")
+    for name, v in (("wall clock", wall_ms), ("CUDA events", ev_ms)):
+        say(f"per-frame latency by {name} over frames 1..{n_frames - 1}: median "
+            f"{np.median(v[1:]):.3f} ms, p95 {np.percentile(v[1:], 95):.3f} ms, max "
+            f"{v[1:].max():.3f} ms; frame 0 {v[0]:.3f} ms {card}")
+    say(f"peak device memory over the engine run {peak_gib:.3f} GiB {card}")
+    check(k1_eng > 0, "the engine never launched K1")
+    check(k3_eng > 0, "the engine never launched K3")
+    check(full_ate["rmse"] <= MAX_ATE_RATIO * REF_ATE_M,
+          f"engine ATE {full_ate['rmse']} m > {MAX_ATE_RATIO} x {REF_ATE_M} m")
+
+    # the first frames again on the CPU, float32 and float64, same seed and
+    # therefore the same RANSAC draws
+    o = seq.offsets
+    head = dataclasses.replace(
+        seq, frame_stamps=seq.frame_stamps[:CPU_FRAMES], offsets=o[:CPU_FRAMES + 1],
+        xyz=seq.xyz[:o[CPU_FRAMES]], doppler=seq.doppler[:o[CPU_FRAMES]],
+        intensity=seq.intensity[:o[CPU_FRAMES]],
+    )
+    cpu = {}
+    for dt in (torch.float32, torch.float64):
+        e = pipeline.Engine(cfg_e, dtype=dt, seed=ENGINE_SEED, device="cpu")
+        cpu[dt] = datasets.replay(e, head, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY)
+    card_p = np.stack([x["pose"] for x in outs[:CPU_FRAMES]])
+    cpu32, cpu64 = (np.stack([x["pose"] for x in cpu[dt]]) for dt in (torch.float32, torch.float64))
+    gap, band = np.abs(card_p - cpu32).max(), np.abs(cpu32 - cpu64).max()
+    same_kf = [x["is_keyframe"] for x in outs[:CPU_FRAMES]] == [x["is_keyframe"] for x in cpu[torch.float32]]
+    tol = CPU_BAND_FACTOR * band + CPU_BAND_FLOOR_M
+    say(f"first {CPU_FRAMES} frames, card vs CPU float32: largest pose gap {gap:.3e} "
+        f"(CPU float32 vs float64: {band:.3e}; tolerance {tol:.3e}); is_keyframe flags "
+        f"{'equal' if same_kf else 'differ'}")
+    check(gap <= tol, f"card and CPU differ by {gap} > {tol}")
+
+    phase("8 K3 against its plain twin")
+    bk = eng.state.backend  # the last frame's fitness inputs (backend/slam.py)
+    rel = lie.se3_matrix(bk.odom_R[-1].T @ bk.odom_R[-2], bk.odom_R[-1].T @ (bk.odom_p[-2] - bk.odom_p[-1]))
+    q3 = lie.transform_points(rel, bk.xyz[-2])[None].contiguous()
+    r3 = torch.where(bk.cloud_mask[-1][:, None], bk.xyz[-1], SENTINEL)[None].contiguous()
+    m3 = bk.cloud_mask[-1][None].contiguous()
+    k3_err = compare_k3("engine inputs", nn_argmin, q3, r3, m3)[0]
+    k3_err = max(k3_err, k3_cases(nn_argmin, dev))
+
+    phase("9 K3 timing")
+
+    def k3_library(q, r, m):  # bmm + norms + masked argmin: the plain-torch composition
+        d2 = (q * q).sum(-1)[..., None] + (r * r).sum(-1)[:, None, :] - 2.0 * torch.bmm(q, r.transpose(1, 2))
+        d2 = torch.where(m[:, None, :], d2, torch.inf)
+        idx = torch.argmin(d2, dim=-1)
+        return idx, torch.take_along_dim(d2, idx[..., None], dim=-1)
+
+    rng = np.random.default_rng(9)
+    qb = torch.as_tensor(rng.normal(size=(256, 1024, 3)) * 10, dtype=torch.float32, device=dev)
+    rb = torch.as_tensor(rng.normal(size=(256, 1024, 3)) * 10, dtype=torch.float32, device=dev)
+    mb = torch.ones((256, 1024), dtype=torch.bool, device=dev)
+    k3 = {}
+    for key, (q, r, m), reps in (("engine", (q3, r3, m3), 200), ("B=256", (qb, rb, mb), 20)):
+        Bq, Nq, Mq = q.shape[0], q.shape[1], r.shape[1]
+        ms = time_ms(lambda: nn_argmin.nearest_neighbor(q, r, m), reps=reps, warmup=3)
+        pms = time_ms(lambda: nn_argmin.nearest_neighbor_plain(q, r, m), reps=5)
+        lms = time_ms(lambda: k3_library(q, r, m), reps=reps, warmup=3)
+        ops = 8 * Nq * int(m.sum().item())  # every query against every valid ref
+        nbytes = 4 * (Bq * Nq * 3 + Bq * Mq * 3 + 2 * Bq * Nq) + Bq * Mq
+        t_ops, t_bytes = ops / H100_F32_OPS, nbytes / H100_BYTES
+        k3[key] = {"ms": ms, "plain_ms": pms, "bound_ms": 1e3 * max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lms}
+        say(f"K3 at {key} (B,N,M={Bq},{Nq},{Mq}): {ms:.4f} ms/launch, plain twin {pms:.4f} ms, "
+            f"bmm + masked argmin {lms:.4f} ms, bound {k3[key]['bound_ms']:.5f} ms "
+            f"({k3[key]['bound_by']}: {ops:.3e} ops, {nbytes:.3e} bytes) {card}")
+    say(f"K3 launches per frame on the engine: {k3_eng / n_frames:.3f}")
     torch.cuda.synchronize()
     say(f"wall time {time.perf_counter() - t_start:.1f} s")
 
-    kernels = [{
-        "name": "K1 fused_gather",
-        "route": "cuda",
-        "source": "rivslam_tpu_torch/csrc/nn_gather.cu",
-        "replaces": "rivslam_tpu/ops/pallas_nn.py:179",
-        "launches": total_launches,
-        "max_abs_err": k1_err,
-        "ms": k1_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
-    }]
+    kernels = [
+        {"name": "K1 fused_gather", "route": "cuda", "source": "rivslam_tpu_torch/csrc/nn_gather.cu",
+         "replaces": "rivslam_tpu/ops/pallas_nn.py:179", "launches": k1_eng,
+         "max_abs_err": k1_err, **k1},
+        {"name": "K3 nearest_neighbor", "route": "cuda", "source": "rivslam_tpu_torch/csrc/nn_argmin.cu",
+         "replaces": "rivslam_tpu/ops/pallas_nn.py:29", "launches": k3_eng,
+         "max_abs_err": k3_err, **k3["engine"]},
+    ]
     say(smi)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -2,12 +2,14 @@
 
 It sits beside the JAX package, which stays the reference: every ported
 module mirrors its counterpart's path (``core/``, ``ops/``, ``frontend/``,
-``io/``) and is tested against it on the CPU. The port imports torch and
-numpy, never jax and nothing of ``rivslam_tpu``.
+``factors/``, ``solver/``, ``backend/``, ``io/``, ``eval/``,
+``pipeline.py``) and is tested against it on the CPU. The port imports
+torch and numpy, never jax and nothing of ``rivslam_tpu``.
 
-Entry points run on the card (``device="cuda"``) unless the caller asks
-for the CPU. The hand-written CUDA kernels live in ``csrc/`` and are built
-with nvcc on first use (``ops/nn_gather.py``).
+Entry points (``entry``, ``frontend.apdgicp``, ``pipeline.Engine``) run on
+the card (``device="cuda"``) unless the caller asks for the CPU. The
+hand-written CUDA kernels live in ``csrc/`` and are built with nvcc on
+first use (``ops/cuda_build.py``).
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,12 @@
 """SO(3)/SE(3) Lie-group math (port of ``rivslam_tpu/core/lie.py``).
 
-Only what the scan match and its tests use: hat, so3 exp/log, the SE(3)
-4x4 helpers and the geodesic angle. Branch-free like the reference: small
-angles take Taylor expansions through ``torch.where``, and every function
-is batched over leading dims and keeps its input's dtype and device.
+What the scan match, the odometry and the window backend use: hat, so3
+exp/log and their Jacobians, the SE(3) 4x4 helpers, the geodesic angle,
+re-orthonormalisation and yaw-pitch-roll. Branch-free like the reference:
+small angles take Taylor expansions through ``torch.where``, and every
+function is batched over leading dims, keeps its input's dtype and device,
+and runs under ``torch.func.vmap``/``jacfwd`` (no in-place writes into
+inputs, no host reads).
 """
 
 from __future__ import annotations
@@ -105,6 +108,25 @@ def so3_left_jacobian(w: torch.Tensor) -> torch.Tensor:
     return so3_right_jacobian(-w)
 
 
+def so3_right_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
+    """Jr(w)^-1 = I + W/2 + (1/t^2 - (1+cos)/(2 t sin)) W^2. Batched."""
+    theta2 = torch.sum(w * w, dim=-1)
+    W = hat(w)
+    small = theta2 < _EPS
+    safe2 = torch.where(small, 1.0, theta2)
+    safe_t = torch.sqrt(safe2)
+    coef = torch.where(
+        small,
+        1.0 / 12.0 + theta2 / 720.0,
+        1.0 / safe2 - (1.0 + torch.cos(safe_t)) / (2.0 * safe_t * torch.sin(safe_t)),
+    )
+    return _eye(3, w, W.shape) + 0.5 * W + coef[..., None, None] * (W @ W)
+
+
+def so3_left_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
+    return so3_right_jacobian_inv(-w)
+
+
 def se3_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Pack (R, t) into a homogeneous 4x4. Batched."""
     batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
@@ -131,6 +153,13 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     return se3_matrix(so3_exp(w), torch.einsum("...ij,...j->...i", V, rho))
 
 
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    """SE(3) 4x4 -> [omega, rho]. Batched."""
+    w = so3_log(T[..., :3, :3])
+    rho = torch.einsum("...ij,...j->...i", so3_left_jacobian_inv(w), T[..., :3, 3])
+    return torch.cat([w, rho], dim=-1)
+
+
 def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Apply 4x4 transform(s) to [..., N, 3] points (rigid)."""
     R = T[..., :3, :3]
@@ -142,3 +171,22 @@ def rotation_angle(R: torch.Tensor) -> torch.Tensor:
     """Geodesic angle of a rotation matrix, radians. Batched."""
     tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
     return torch.arccos(torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0))
+
+
+def normalize_rotation(R: torch.Tensor) -> torch.Tensor:
+    """Project a near-rotation matrix back onto SO(3) (Gram-Schmidt)."""
+    x = R[..., :, 0]
+    y = R[..., :, 1]
+    x = x / torch.linalg.norm(x, dim=-1, keepdim=True).clamp_min(_EPS)
+    y = y - torch.sum(x * y, dim=-1, keepdim=True) * x
+    y = y / torch.linalg.norm(y, dim=-1, keepdim=True).clamp_min(_EPS)
+    z = torch.cross(x, y, dim=-1)
+    return torch.stack([x, y, z], dim=-1)
+
+
+def ypr_from_rot(R: torch.Tensor) -> torch.Tensor:
+    """Yaw-pitch-roll (ZYX) from a rotation matrix."""
+    yaw = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    pitch = torch.asin(torch.clamp(-R[..., 2, 0], -1.0, 1.0))
+    roll = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    return torch.stack([yaw, pitch, roll], dim=-1)

@@ -39,6 +39,12 @@ class RadarCloud:
     def count(self) -> torch.Tensor:
         return self.mask.sum(dim=-1)
 
+    def replace(self, **kw) -> "RadarCloud":
+        return dataclasses.replace(self, **kw)
+
+    def and_mask(self, keep: torch.Tensor) -> "RadarCloud":
+        return self.replace(mask=self.mask & keep)
+
     @staticmethod
     def from_numpy(
         xyz: np.ndarray,

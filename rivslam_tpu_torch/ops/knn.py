@@ -1,4 +1,4 @@
-"""Masked nearest-neighbour search, plain torch (port of ``rivslam_tpu/ops/knn.py``).
+"""Masked nearest-neighbour searches, plain torch (port of ``rivslam_tpu/ops/knn.py``).
 
 Brute force in the expanded form ||a-b||^2 = |a|^2 + |b|^2 - 2 a.b with the
 cross term one batched matmul (full float32; the port keeps TF32 off).
@@ -34,3 +34,32 @@ def nearest_neighbor(
     idx = torch.argmin(d2, dim=-1)
     best = torch.take_along_dim(d2, idx[..., None], dim=-1)[..., 0]
     return idx.to(torch.int32), best
+
+
+def knn(
+    query: torch.Tensor,
+    ref: torch.Tensor,
+    ref_mask: torch.Tensor,
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact k nearest valid refs per query, ascending.
+
+    Returns (idx [..., N, k] int32, sqdist [..., N, k]); invalid refs carry
+    +inf. Equal distances keep the lower index first, as the reference's
+    ``lax.top_k`` does: a stable sort, where ``torch.topk`` promises no
+    order among ties.
+    """
+    d2 = pairwise_sqdist(query, ref)
+    d2 = torch.where(ref_mask[..., None, :], d2, torch.inf)
+    d2s, idx = torch.sort(d2, dim=-1, stable=True)
+    return idx[..., :k].to(torch.int32), d2s[..., :k]
+
+
+def radius_count(points: torch.Tensor, mask: torch.Tensor, radius: float) -> torch.Tensor:
+    """Number of OTHER valid points within ``radius`` of each point (one
+    [N, N] pass)."""
+    d2 = pairwise_sqdist(points, points)
+    n = points.shape[-2]
+    within = (d2 <= radius * radius) & mask[..., None, :]
+    within = within & ~torch.eye(n, dtype=torch.bool, device=points.device)
+    return torch.sum(within, dim=-1)

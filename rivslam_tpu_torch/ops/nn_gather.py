@@ -15,104 +15,43 @@ target, averaged over exact ties, zeros where there is none.
   tensors. It never falls back from one to the other.
 - ``fused_gather_plain`` is that twin: plain torch with K1's semantics, the
   same distance arithmetic and tiles of 1024 targets.
-- ``build`` compiles the kernel with ``nvcc`` into a shared library with a C
-  interface, on first use, into ``rivslam_tpu_torch/_build/`` (keyed by a
-  hash of the source and flags), and loads it with ``ctypes``.
+- ``build`` compiles the kernel on first use (``ops/cuda_build.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import dataclasses
-import hashlib
 import os
-import shutil
-import subprocess
-import time
 
 import torch
 
+from rivslam_tpu_torch.ops import cuda_build
+
 BIG = 1e30
 TILE_M = 1024  # the TPU kernel's target tile (pallas_nn.TILE_M_GATHER)
-MAX_BLOCKS_Y = 65535  # the launch puts problems on grid.y
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(os.path.dirname(_HERE), "csrc", "nn_gather.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-BUILD_TIMEOUT_S = 600
+SOURCE = os.path.join(cuda_build.CSRC, "nn_gather.cu")
+BUILD_DIR = cuda_build.BUILD_DIR
 
-
-@dataclasses.dataclass(frozen=True)
-class Build:
-    """A built and loaded kernel library."""
-
-    path: str
-    seconds: float  # wall time of the nvcc call, 0.0 when already built
-    ptxas: tuple[str, ...]  # nvcc's -Xptxas -v report (registers, smem, spills)
-    lib: ctypes.CDLL
-
-
-_build: Build | None = None
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(cuda_home, "bin", "nvcc")
-    found = cand if os.path.exists(cand) else shutil.which("nvcc")
-    if not found:
-        raise RuntimeError(f"nvcc not found under {cuda_home}/bin or on PATH")
-    return found
+_build: cuda_build.Build | None = None
 
 
 def library_path() -> str:
     """Where the library for the current source and flags lives."""
-    h = hashlib.sha256()
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"nn_gather_{h.hexdigest()[:16]}.so")
+    return cuda_build.library_path(SOURCE)
 
 
-def build() -> Build:
-    """Compile (once per source hash) and load the kernel library.
-
-    nvcc writes to a temporary name that is renamed into place, so a
-    concurrent or interrupted build never leaves a partial library behind
-    and no lock is needed.
-    """
-    global _build
-    if _build is not None:
-        return _build
-    path = library_path()
-    seconds, ptxas = 0.0, ()
-    if not os.path.exists(path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S
-        )
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, path)
-        ptxas = tuple(
-            ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
-            if "ptxas" in ln or "spill" in ln
-        )
-    lib = ctypes.CDLL(path)
+def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.rivslam_nn_gather_f32
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    _build = Build(path=path, seconds=seconds, ptxas=ptxas, lib=lib)
+
+
+def build() -> cuda_build.Build:
+    """Compile (once per source hash) and load the kernel library."""
+    global _build
+    if _build is None:
+        _build = cuda_build.build(SOURCE, _declare)
     return _build
 
 
@@ -148,26 +87,14 @@ def fused_gather(
         return fused_gather_plain(query, ref, ref_mask, feats_t)
     if query.device.type != "cuda":
         raise ValueError(f"unsupported device {query.device}")
-    for name, t in (("query", query), ("ref", ref), ("feats_t", feats_t)):
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32 for the CUDA kernel, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous for the CUDA kernel")
-    if not ref_mask.is_contiguous():
-        raise ValueError("ref_mask must be contiguous for the CUDA kernel")
-    if B > MAX_BLOCKS_Y:
-        raise ValueError(f"B={B} exceeds the kernel's {MAX_BLOCKS_Y} problems")
+    cuda_build.check_launch(B, {"query": query, "ref": ref, "feats_t": feats_t},
+                            {"ref_mask": ref_mask})
     d2 = torch.empty((B, N), dtype=torch.float32, device=query.device)
     g = torch.empty((B, F, N), dtype=torch.float32, device=query.device)
-    fn = build().lib.rivslam_nn_gather_f32
-    with torch.cuda.device(query.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
-            query.data_ptr(), ref.data_ptr(), ref_mask.data_ptr(),
-            feats_t.data_ptr(), d2.data_ptr(), g.data_ptr(), B, N, M, F, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"nn_gather kernel launch failed: cudaError_t {err}")
+    cuda_build.launch(
+        build().lib.rivslam_nn_gather_f32, query.device, query.data_ptr(), ref.data_ptr(),
+        ref_mask.data_ptr(), feats_t.data_ptr(), d2.data_ptr(), g.data_ptr(), B, N, M, F,
+    )
     fused_gather.launches += 1
     return d2, g
 

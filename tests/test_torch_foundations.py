@@ -167,10 +167,10 @@ def test_make_world_and_observe_identical():
 def test_simulated_frames_identical():
     kw = dict(seed=3, n_frames=4, capacity=256, radius=14.0, omega=0.22, world_points=4000)
     seq, _ = ref_syn.simulate_sequence(**kw)
-    frames, gt = synthetic.simulate_frames(**kw)
-    np.testing.assert_array_equal(gt, seq.gt_poses)
-    for i, f in enumerate(frames):
-        ref = seq.frame(i)
+    got, _ = synthetic.simulate_sequence(**kw)
+    np.testing.assert_array_equal(got.gt_poses, seq.gt_poses)
+    for i in range(got.num_frames):
+        f, ref = got.frame(i), seq.frame(i)
         assert f["stamp"] == ref["stamp"]
         for k in ("xyz", "doppler", "intensity"):
             np.testing.assert_array_equal(f[k], ref[k])

@@ -1,6 +1,7 @@
 """PyTorch port point ops against the JAX package on the CPU: PLANE
-regularization, nearest-neighbour search, and K1's plain twin against the
-Pallas kernel run in interpret mode (mirroring tests/test_pallas_nn.py)."""
+regularization, nearest-neighbour search, and the plain twins of K1 and K3
+against the Pallas kernels run in interpret mode (mirroring
+tests/test_pallas_nn.py)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,7 +11,9 @@ import torch
 from rivslam_tpu.ops import eig3 as ref_eig3
 from rivslam_tpu.ops import knn as ref_knn
 from rivslam_tpu.ops import pallas_nn
-from rivslam_tpu_torch.ops import eig3, knn, nn_gather
+from rivslam_tpu.core.pointcloud import RadarCloud as RefCloud
+from rivslam_tpu.core.pointcloud import masked_xyz as ref_masked_xyz
+from rivslam_tpu_torch.ops import eig3, knn, nn_argmin, nn_gather
 
 # d2 tolerances of tests/test_pallas_nn.py: the interpreted kernel's cross
 # term is an XLA dot, the twin's three separately rounded products; features
@@ -175,3 +178,102 @@ def test_library_path_follows_the_source(tmp_path, monkeypatch):
     src.write_text("// v2\n")
     assert nn_gather.library_path() != p1
     assert p1.startswith(nn_gather.BUILD_DIR) and p1.endswith(".so")
+
+
+# ---- K3's plain twin vs nearest_neighbor_pallas(interpret=True) -------------
+# (tests/test_pallas_nn.py:11-41: idx equal, d2 within rtol 1e-4 / atol 1e-3;
+# the interpreted kernel's cross term is an XLA dot, the twin's three
+# separately rounded products)
+
+
+def _k3_vs_reference(q, r, capacity):
+    """One problem: the interpreted Pallas kernel, the XLA knn path and the
+    port's twin, on a cloud padded to ``capacity`` like the reference test."""
+    cloud = RefCloud.from_numpy(r, capacity, dtype=jnp.float32)
+    ref_idx, ref_d2 = ref_knn.nearest_neighbor(jnp.asarray(q), ref_masked_xyz(cloud), cloud.mask)
+    pal_idx, pal_d2 = pallas_nn.nearest_neighbor_pallas(
+        jnp.asarray(q), cloud.xyz, cloud.mask, interpret=True
+    )
+    idx, d2 = nn_argmin.nearest_neighbor(
+        torch.as_tensor(q)[None], torch.tensor(np.asarray(cloud.xyz))[None],
+        torch.tensor(np.asarray(cloud.mask))[None],
+    )
+    return idx[0].numpy(), d2[0].numpy(), (ref_idx, ref_d2), (pal_idx, pal_d2)
+
+
+@pytest.mark.parametrize("n,m,capacity", [(300, 700, 1024), (97, 513, 513)], ids=["padded", "unaligned"])
+def test_nearest_neighbor_plain_matches_pallas_and_knn(n, m, capacity):
+    rng = np.random.default_rng(0)
+    q = rng.normal(size=(n, 3)).astype(np.float32) * 10
+    r = rng.normal(size=(m, 3)).astype(np.float32) * 10
+    idx, d2, (ref_idx, ref_d2), (pal_idx, pal_d2) = _k3_vs_reference(q, r, capacity)
+    assert idx.dtype == np.int32
+    np.testing.assert_array_equal(idx, np.asarray(pal_idx))
+    np.testing.assert_array_equal(idx, np.asarray(ref_idx))
+    np.testing.assert_allclose(d2, np.asarray(pal_d2), rtol=D2_RTOL, atol=D2_ATOL)
+    np.testing.assert_allclose(d2, np.asarray(ref_d2), rtol=D2_RTOL, atol=D2_ATOL)
+
+
+def test_nearest_neighbor_plain_all_masked():
+    """No valid ref: d2 1e30 and idx 0, as the TPU kernel gives."""
+    rng = np.random.default_rng(1)
+    q = rng.normal(size=(2, 64, 3)).astype(np.float32)
+    r = rng.normal(size=(2, 128, 3)).astype(np.float32)
+    mask = np.zeros((2, 128), bool)
+    mask[1, 5::7] = True
+    idx, d2 = nn_argmin.nearest_neighbor(*map(torch.as_tensor, (q, r, mask)))
+    pal_idx, pal_d2 = pallas_nn.nearest_neighbor_pallas(
+        jnp.asarray(q[0]), jnp.asarray(r[0]), jnp.zeros(128, dtype=bool), interpret=True
+    )
+    assert (d2[0].numpy() > 1e29).all() and (np.asarray(pal_d2) > 1e29).all()
+    np.testing.assert_array_equal(idx[0].numpy(), 0)
+    np.testing.assert_array_equal(idx[0].numpy(), np.asarray(pal_idx))
+    assert mask[1, idx[1].numpy()].all()
+
+
+def test_nearest_neighbor_plain_first_index_wins_ties():
+    """Exact duplicates within a 512-ref tile and across the tile edge: the
+    first index wins, as in the TPU kernel (strict update across tiles)."""
+    r = np.full((1, 1100, 3), 50.0, np.float32)
+    r[0, :5] = np.arange(15, dtype=np.float32).reshape(5, 3)
+    r[0, 300] = r[0, 1]  # tie inside the first tile
+    r[0, 600] = r[0, 2]  # tie across the tile edge
+    r[0, 1050] = r[0, 3]
+    q = r[:, :5].copy()
+    mask = np.ones((1, 1100), bool)
+    mask[0, 4] = False  # query 4's exact match is masked: its twin never wins
+    idx, d2 = nn_argmin.nearest_neighbor(*map(torch.as_tensor, (q, r, mask)))
+    pal_idx, _ = pallas_nn.nearest_neighbor_pallas(
+        jnp.asarray(q[0]), jnp.asarray(r[0]), jnp.asarray(mask[0]), interpret=True
+    )
+    np.testing.assert_array_equal(idx[0].numpy()[:4], [0, 1, 2, 3])
+    np.testing.assert_array_equal(idx[0].numpy(), np.asarray(pal_idx))
+    assert idx[0, 4].item() != 4
+
+
+def test_nearest_neighbor_on_cpu_uses_the_twin_and_counts_no_launch():
+    rng = np.random.default_rng(4)
+    args = [torch.as_tensor(a) for a in (
+        _cloud(rng, (3, 50, 3)), _cloud(rng, (3, 600, 3)), rng.uniform(size=(3, 600)) > 0.3,
+    )]
+    before = nn_argmin.nearest_neighbor.launches
+    idx, d2 = nn_argmin.nearest_neighbor(*args)
+    idx_p, d2_p = nn_argmin.nearest_neighbor_plain(*args)
+    assert nn_argmin.nearest_neighbor.launches == before
+    assert torch.equal(idx, idx_p) and torch.equal(d2, d2_p)
+    assert idx.shape == (3, 50) and d2.shape == (3, 50)
+
+
+@pytest.mark.parametrize("bad", ["query_shape", "ref_batch", "mask_dtype", "mask_m"])
+def test_nearest_neighbor_rejects_bad_inputs(bad):
+    q, r, m = torch.zeros(2, 10, 3), torch.zeros(2, 20, 3), torch.ones(2, 20, dtype=torch.bool)
+    if bad == "query_shape":
+        q = torch.zeros(2, 10, 4)
+    elif bad == "ref_batch":
+        r = torch.zeros(3, 20, 3)
+    elif bad == "mask_dtype":
+        m = m.float()
+    else:
+        m = torch.ones(2, 21, dtype=torch.bool)
+    with pytest.raises(ValueError):
+        nn_argmin.nearest_neighbor(q, r, m)
