@@ -4,8 +4,9 @@
 
 Phases, each announced by a flushed "== phase" line:
   1. device   the card's name and power limit (nvidia-smi) and device count;
-  2. build    K1 (csrc/nn_gather.cu) and K3 (csrc/nn_argmin.cu), one nvcc
-              each, started together; wall times and ptxas reports;
+  2. build    K1 (csrc/nn_gather.cu), K2 (csrc/nn_corr.cu) and K3
+              (csrc/nn_argmin.cu), one nvcc each, started together; wall
+              times and ptxas reports;
   3. data     bench.py's protocol: B=256 frame pairs, capacity N=M=1024,
               from the port's numpy copy of the simulator;
   4. K1       the kernel against its plain twin on the card, on the main
@@ -17,16 +18,27 @@ Phases, each announced by a flushed "== phase" line:
   6. timing   CUDA-event times: frames/s with the kernel on and off, K1 per
               launch beside its plain twin, the flag-off correspondence step
               (library_ms) and the least time the card could take (bound_ms);
-  7. engine   the per-frame SLAM engine (Engine + replay) over the "cp"
-              validation course at full width (capacity 1024, IMU capacity
-              64, window 6), launch counts read around the run: ATE against
-              the simulator's ground truth (held to 1.5x the JAX engine's),
-              keyframes, converged share, per-frame latency, frames/s, peak
-              memory; then its first 8 frames on the card against the CPU;
-  8. K3       the kernel against its plain twin on the card: the engine's
+  7. K2       the kernel against its plain twin on the card: the exact
+              path's own inputs (F = 12), B=256 at full width, ragged,
+              masked, exact ties across the 512-ref tile edge, F=1 and 128;
+  8. exact    the exact scan match (use_fast_path=False) on the same B=256
+              pairs for FAST_APDGICP (KNN and RBF covariances), GICP and
+              ICP, K2 launches read around each; convergence, error, and a
+              small input against the CPU run;
+  9. engine   the "cp" preset as shipped (loop closure on, K1 on) over the
+              120-frame "cp" validation course at capacity 1024: the
+              loop-corrected ATE and the window backend's own (uncorrected)
+              ATE, each held to 1.5x the JAX engine's; keyframes, loops
+              closed, loop_stats, per-frame latency, peak memory, K1/K2/K3
+              launches; then the first 8 frames of the loop-off path on the
+              card against the CPU;
+ 10. engine   the same course through the exact registration
+     exact    (validation.build_course_cfg("cp", use_fast_path=False)): K2
+              launches, ATE held to 1.5x the JAX engine's, loops closed;
+ 11. K3       the kernel against its plain twin on the card: the engine's
               fitness inputs, B=256, ragged, masked and exact-tie cases;
-  9. K3 time  per launch at the engine's shape and at B=256, the plain twin,
-              the bmm + masked argmin composition, and the bound.
+ 12. timing   K3 and K2 per launch at their engine's shape and at B=256, the
+              plain twins, the library compositions, and the bounds.
 
 Any failed check raises, and the script then exits non-zero without a
 result. The line before the last is a JSON object listing the kernels; the
@@ -53,13 +65,18 @@ D2_RTOL, D2_ATOL = 1e-4, 1e-6  # d2: relative, with a floor for d2 near 0
 G_ATOL = 1e-5  # gathered features (exact ties are means of a few values)
 MIN_CONVERGED = 0.9
 MAX_MEDIAN_TERR_M = 0.1
-# the engine phase: the "cp" validation course (rivslam_tpu/eval/validation.py:42)
+# the engine phases: the "cp" validation course (rivslam_tpu/eval/validation.py:42)
 COURSE = dict(seed=21, radius=8.0, omega=0.25, dt=0.25, n_frames=120, capacity=1024,
               world_points=20000, extent=30.0)
 ENGINE_CAPACITY, ENGINE_IMU_CAPACITY, ENGINE_SEED = 1024, 64, 0
-# full-trajectory ATE of the JAX engine on this course, configuration and
-# seeds, float32 on the CPU (`python tests/test_torch_engine.py`)
-REF_ATE_M = 0.7365842276827688
+# the JAX engine on this course and seeds, float32 on the CPU
+# (`PYTHONPATH=. python tests/test_torch_engine_loop.py`): full-trajectory
+# ATE after loop correction, the window backend's own ATE (what the engine
+# gives with loop closure off: tests/test_torch_engine.py), loops closed
+REF = {
+    "preset": {"ate_m": 0.28056248288268654, "uncorrected_ate_m": 0.7365842276827688, "loops": 1},
+    "exact": {"ate_m": 0.24116977638213324, "uncorrected_ate_m": 0.7587948732727486, "loops": 2},
+}
 MAX_ATE_RATIO = 1.5
 CPU_FRAMES = 8
 # card vs CPU on the first frames: float32 rounding of the isolated points'
@@ -196,12 +213,98 @@ def k3_cases(nn_argmin, dev):
     return max(errs)
 
 
-def engine_cfg(presets):
-    """The slice's configuration: the "cp" preset, loop closure off, K1 on."""
+def compare_k2(name, nn_corr, q, r, m, f):
+    """K2 against its plain twin: idx and g equal, d2 bitwise. Returns max|err|."""
+    idx, d2, g = nn_corr.fused_correspondence(q, r, m, f)
+    pidx, pd2, pg = nn_corr.fused_correspondence_plain(q, r, m, f)
+    torch.cuda.synchronize()
+    err = max((d2 - pd2).abs().max().item(), (g - pg).abs().max().item())
+    check(err == 0.0, f"K2 {name}: d2 or g differs from the plain twin by {err}")
+    check(bool(torch.equal(idx, pidx)), f"K2 {name}: idx differs from the plain twin "
+          f"at {int((idx != pidx).sum())} queries")
+    check(bool(torch.equal(g, pg)), f"K2 {name}: gathered rows differ from the plain twin")
+    say(f"K2 {name}: B,N,M,F={tuple(q.shape[:2]) + (r.shape[1], f.shape[2])} "
+        f"max|err|={err:.3e}, idx and g equal")
+    return err, idx, d2, g
+
+
+def exact_corr_inputs(prep, xyz):
+    """What the exact registration hands K2 (frontend/apdgicp.register):
+    query points, the target with masked rows at the sentinel, its mask, and
+    its xyz + full covariance as F = 12 features."""
+    from rivslam_tpu_torch.core.pointcloud import SENTINEL
+
+    Bq, M = prep.xyz.shape[:2]
+    ref = torch.where(prep.mask[..., None], prep.xyz, SENTINEL).contiguous()
+    feats = torch.cat([prep.xyz, prep.cov.reshape(Bq, M, 9)], dim=-1).contiguous()
+    return xyz.contiguous(), ref, prep.mask.contiguous(), feats
+
+
+def k2_cases(nn_corr, dev):
+    """B=256 at full width, ragged sizes, masked refs, exact ties, F=1/128."""
+    rng = np.random.default_rng(10)
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=dev)
+    errs = []
+    q, r = t(rng.normal(size=(256, 1024, 3)) * 10), t(rng.normal(size=(256, 1024, 3)) * 10)
+    m = t(rng.uniform(size=(256, 1024)) > 0.1, torch.bool)
+    errs.append(compare_k2("B=256", nn_corr, q, r, m, t(rng.normal(size=(256, 1024, 12))))[0])
+    q, r = t(rng.normal(size=(3, 1000, 3)) * 10), t(rng.normal(size=(3, 1500, 3)) * 10)
+    f = t(rng.normal(size=(3, 1500, 12)))
+    errs.append(compare_k2("ragged", nn_corr, q, r, t(rng.uniform(size=(3, 1500)) > 0.15, torch.bool), f)[0])
+    m = t(np.stack([np.zeros(1500, bool), rng.uniform(size=1500) > 0.5, np.ones(1500, bool)]), torch.bool)
+    err, idx, d2, g = compare_k2("masked", nn_corr, q, r, m, f)
+    check(bool((d2[0] == 1e30).all()) and bool((idx[0] == 0).all()) and bool((g[0] == 0).all()),
+          "K2 masked: a problem without valid refs must give d2 1e30, idx 0 and zero rows")
+    check(bool(m[1][idx[1].long()].all()), "K2 masked: a masked ref won")
+    errs.append(err)
+    # exact ties: refs 512..767 copy refs 0..255 (across the 512-ref tile),
+    # 300..349 copy 0..49; queries 0..255 sit on refs 0..255: the first wins
+    rr = rng.normal(size=(2, 1100, 3)) * 10
+    rr[:, 512:768] = rr[:, :256]
+    rr[:, 300:350] = rr[:, :50]
+    qq = rng.normal(size=(2, 700, 3)) * 10
+    qq[:, :256] = rr[:, :256]
+    ff = t(rng.normal(size=(2, 1100, 12)))
+    err, idx, _, g = compare_k2("ties", nn_corr, t(qq), t(rr), torch.ones((2, 1100), dtype=torch.bool, device=dev), ff)
+    check(bool((idx[:, :256] == torch.arange(256, device=dev)).all()), "K2 ties: the first index must win")
+    check(bool(torch.equal(g[:, :256], ff[:, :256])), "K2 ties: the first index's row must be gathered")
+    errs.append(err)
+    for F in (1, 128):
+        q, r = t(rng.normal(size=(2, 700, 3)) * 10), t(rng.normal(size=(2, 900, 3)) * 10)
+        m = t(rng.uniform(size=(2, 900)) > 0.2, torch.bool)
+        errs.append(compare_k2(f"F={F}", nn_corr, q, r, m, t(rng.normal(size=(2, 900, F))))[0])
+    return max(errs)
+
+
+def loop_off_cfg(presets):
+    """The loop-off engine configuration: the "cp" preset, loop closure
+    off, K1 on (the card-vs-CPU check and ``profile_torch.py --engine``)."""
+    cfg = preset_cfg(presets)
+    return dataclasses.replace(cfg, loop=dataclasses.replace(cfg.loop, enable=False))
+
+
+def preset_cfg(presets):
+    """The "cp" preset as shipped (loop closure on), with K1 on."""
     cfg = presets.get("cp")
     return dataclasses.replace(
-        cfg, loop=dataclasses.replace(cfg.loop, enable=False),
-        registration=dataclasses.replace(cfg.registration, use_pallas_correspondence=True),
+        cfg, registration=dataclasses.replace(cfg.registration, use_pallas_correspondence=True),
+    )
+
+
+def exact_cfg(presets):
+    """What the JAX package's eval/validation.build_course_cfg("cp",
+    reg_overrides={"use_fast_path": False}) builds: the "cp" preset for
+    instantaneous synthetic scans, the exact registration."""
+    cfg = presets.get("cp")
+    r = dataclasses.replace
+    return r(
+        cfg,
+        preprocess=r(cfg.preprocess, enable_deskew=False, enable_under_floor_removal=False),
+        registration=r(cfg.registration, method="FAST_APDGICP", use_fast_path=False),
+        backend=r(cfg.backend, max_solver_iterations=8),
+        loop=r(cfg.loop, enable=True, accum_distance_thresh=min(cfg.loop.accum_distance_thresh, 40.0),
+               min_loop_interval_dist=5.0),
+        odometry=r(cfg.odometry, use_ego_vel=True, thresholding_fallback="EGOVEL"),
     )
 
 
@@ -224,9 +327,18 @@ def main() -> None:
     from rivslam_tpu_torch.core import lie
     from rivslam_tpu_torch.eval import ate
     from rivslam_tpu_torch.io import datasets, synthetic
-    from rivslam_tpu_torch.ops import nn_argmin, nn_gather
+    from rivslam_tpu_torch.ops import nn_argmin, nn_corr, nn_gather
 
     dev = torch.device("cuda")
+    counted = {"K1": nn_gather.fused_gather, "K2": nn_corr.fused_correspondence,
+               "K3": nn_argmin.nearest_neighbor}
+
+    def zero_counts():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {name: fn.launches for name, fn in counted.items()}
     t_start = time.perf_counter()
 
     phase("1 device")
@@ -242,8 +354,9 @@ def main() -> None:
     phase("2 build")
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-        builds = {name: pool.submit(mod.build) for name, mod in (("K1", nn_gather), ("K3", nn_argmin))}
+    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, started together
+        builds = {name: pool.submit(mod.build)
+                  for name, mod in (("K1", nn_gather), ("K2", nn_corr), ("K3", nn_argmin))}
         builds = {name: fut.result() for name, fut in builds.items()}
     for name, built in builds.items():
         say(f"{name}: nvcc built {os.path.relpath(built.path)} in {built.seconds:.2f} s")
@@ -274,7 +387,7 @@ def main() -> None:
     phase("5 main path")
     results, launches = {}, {}
     torch.cuda.reset_peak_memory_stats()
-    nn_gather.fused_gather.launches = nn_argmin.nearest_neighbor.launches = 0
+    zero_counts()
     for cov in ("KNN", "RBF"):
         cfg = dataclasses.replace(cfg_on, covariance_method=cov)
         before = nn_gather.fused_gather.launches
@@ -283,7 +396,7 @@ def main() -> None:
         launches[cov] = nn_gather.fused_gather.launches - before
         results[cov] = res
     total_launches = nn_gather.fused_gather.launches
-    say(f"scan-match path launches: K1 {total_launches}, K3 {nn_argmin.nearest_neighbor.launches}")
+    say(f"scan-match path launches: {read_counts()}")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     check(total_launches > 0, "the main path never launched K1")
     for cov, res in results.items():
@@ -366,78 +479,147 @@ def main() -> None:
     k1 = {"ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
           "library_ms": library_ms}
 
-    phase("7 engine")
+    phase("7 K2 against its plain twin")
+    cfg_x = RegistrationConfig(use_fast_path=False)
+    tgt_x = apdgicp.prepare(tgt_xyz, tgt_mask, cfg_x, device=dev)
+    k2_err = compare_k2("exact-path inputs (B=256)", nn_corr, *exact_corr_inputs(tgt_x, src_xyz))[0]
+    k2_err = max(k2_err, k2_cases(nn_corr, dev))
+
+    phase("8 exact scan match")
+    exact_runs = {"FAST_APDGICP KNN": dict(method="FAST_APDGICP", covariance_method="KNN"),
+                  "FAST_APDGICP RBF": dict(method="FAST_APDGICP", covariance_method="RBF"),
+                  "GICP": dict(method="GICP"), "ICP": dict(method="ICP")}
+    for name, kw in exact_runs.items():
+        cfg = RegistrationConfig(use_fast_path=False, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        zero_counts()
+        res = run_main(apdgicp, cfg, data, guess, dev)
+        torch.cuda.synchronize()
+        n = read_counts()
+        secs = time.perf_counter() - t0
+        T = res.T.cpu().numpy()
+        check(np.isfinite(T).all() and T.shape == (B, 4, 4), f"exact {name}: bad T")
+        conv = res.converged.float().mean().item()
+        terr = np.linalg.norm(T[:, :3, 3] - gt_rel[:, :3, 3], axis=1)
+        say(f"exact {name}: launches {n}, converged {conv:.4f}, mean iterations "
+            f"{res.iterations.float().mean().item():.2f}, median translation error "
+            f"{np.median(terr):.4f} m; {secs:.3f} s for prepare + register of {B} pairs {card}")
+        check(n["K2"] > 0 and n["K1"] == 0, f"exact {name}: K2 not launched (or K1 was)")
+        check(conv >= MIN_CONVERGED, f"exact {name}: converged {conv} < {MIN_CONVERGED}")
+        check(np.median(terr) <= MAX_MEDIAN_TERR_M, f"exact {name}: median error {np.median(terr)} m")
+    # a small input on the card against the same run on the CPU
+    _, args = rivslam_tpu_torch.entry(device=dev)
+    got = {}
+    for where in (dev, "cpu"):
+        a = [x.to(where) for x in args]
+        got[str(where)] = apdgicp.prepare_and_register(*a, cfg_x, device=where)
+    g_, c_ = got[str(dev)], got["cpu"]
+    dT = (g_.T.cpu() - c_.T).abs().max().item()
+    say(f"exact entry() pair: card vs CPU max|dT| {dT:.2e}, correspondences "
+        f"{int(g_.num_correspondences)} vs {int(c_.num_correspondences)}")
+    check(dT <= 1e-3, f"exact entry(): card and CPU differ by {dT}")
+    check(int(g_.num_correspondences) == int(c_.num_correspondences),
+          "exact entry(): correspondence counts differ")
+
     t0 = time.perf_counter()
     seq, _ = synthetic.simulate_sequence(**COURSE)
     n_frames = seq.num_frames
+    gt = np.linalg.inv(seq.gt_poses[0]) @ seq.gt_poses
     say(f"cp course: {n_frames} frames, {len(seq.imu_stamps)} IMU samples, simulated in "
         f"{time.perf_counter() - t0:.2f} s")
-    cfg_e = engine_cfg(presets)
-    eng = pipeline.Engine(cfg_e, seed=ENGINE_SEED, device=dev)
-    events, wall = [torch.cuda.Event(enable_timing=True)], []
 
-    def tick(i, n):  # replay calls this after each frame; process_frame has synced
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events.append(ev)
+    def drive_engine(key, cfg):
+        """One 120-frame run, the launch counts zeroed just before and read
+        just after; checks the ATE, corrected and not, against the JAX
+        engine's."""
+        eng = pipeline.Engine(cfg, seed=ENGINE_SEED, device=dev)
+        events, wall = [torch.cuda.Event(enable_timing=True)], []
+
+        def tick(i, n):  # replay calls this after each frame; process_frame has synced
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            wall.append(time.perf_counter())
+
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
         wall.append(time.perf_counter())
+        events[0].record()
+        outs = datasets.replay(eng, seq, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY, progress=tick)
+        torch.cuda.synchronize()
+        n = read_counts()
+        engine_s = wall[-1] - wall[0]
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        wall_ms = np.diff(wall) * 1e3
+        ev_ms = np.array([a.elapsed_time(b) for a, b in zip(events[:-1], events[1:])])
+        ref = REF[key]
+        ates = {}
+        for corrected in (True, False):
+            ts, poses = eng.trajectory(corrected=corrected)
+            check(poses.shape == (n_frames, 4, 4) and np.isfinite(poses).all(),
+                  f"engine {key}: non-finite poses")
+            g = gt[[int(np.argmin(np.abs(seq.gt_stamps - t))) for t in ts]]
+            ates[corrected] = ate.ate(poses[:, :3, 3], g[:, :3, 3])["rmse"]
+        n_kf = sum(o["is_keyframe"] for o in outs)
+        conv = float(np.mean([o["registration_ok"] for o in outs[1:]]))
+        loops = eng.loop_stats["accepted"]
+        loop_frames = [i for i, o in enumerate(outs) if o["loop_found"]]
+        say(f"engine {key}: {n_frames} frames in {engine_s:.2f} s = {n_frames / engine_s:.2f} frames/s; "
+            f"full ATE {ates[True]:.4f} m loop-corrected (JAX engine on the CPU: {ref['ate_m']:.4f} m), "
+            f"{ates[False]:.4f} m uncorrected (JAX: {ref['uncorrected_ate_m']:.4f} m), limit "
+            f"{MAX_ATE_RATIO}x; keyframes {n_kf}; loops closed {loops} at frames {loop_frames} "
+            f"(JAX: {ref['loops']}); "
+            f"converged share {conv:.4f}")
+        say(f"engine {key}: loop_stats {json.dumps(eng.loop_stats)}")
+        say(f"engine {key}: launches {n} (per frame: "
+            f"{ {k: round(v / n_frames, 3) for k, v in n.items()} })")
+        for name, v in (("wall clock", wall_ms), ("CUDA events", ev_ms)):
+            say(f"engine {key}: per-frame latency by {name} over frames 1..{n_frames - 1}: median "
+                f"{np.median(v[1:]):.3f} ms, p95 {np.percentile(v[1:], 95):.3f} ms, max "
+                f"{v[1:].max():.3f} ms; frame 0 {v[0]:.3f} ms {card}")
+        timers = {k: round(v["median_ms"], 3) for k, v in eng.timers.summary().items()}
+        say(f"engine {key}: host stage medians (ms, Engine.timers) {timers}; graph solves "
+            f"{eng.timers.summary().get('graph_opt', {}).get('count', 0)}")
+        say(f"engine {key}: peak device memory {peak_gib:.3f} GiB {card}")
+        check(ates[True] <= MAX_ATE_RATIO * ref["ate_m"],
+              f"engine {key}: ATE {ates[True]} m > {MAX_ATE_RATIO} x {ref['ate_m']} m")
+        check(ates[False] <= MAX_ATE_RATIO * ref["uncorrected_ate_m"],
+              f"engine {key}: uncorrected ATE {ates[False]} m > {MAX_ATE_RATIO} x {ref['uncorrected_ate_m']} m")
+        return eng, outs, n
 
-    torch.cuda.reset_peak_memory_stats()
-    nn_gather.fused_gather.launches = nn_argmin.nearest_neighbor.launches = 0
-    wall.append(time.perf_counter())
-    events[0].record()
-    outs = datasets.replay(eng, seq, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY, progress=tick)
-    torch.cuda.synchronize()
-    k1_eng, k3_eng = nn_gather.fused_gather.launches, nn_argmin.nearest_neighbor.launches
-    engine_s = wall[-1] - wall[0]
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    wall_ms = np.diff(wall) * 1e3
-    ev_ms = np.array([a.elapsed_time(b) for a, b in zip(events[:-1], events[1:])])
-    ts, poses = eng.trajectory()
-    check(poses.shape == (n_frames, 4, 4) and np.isfinite(poses).all(), "engine: non-finite poses")
-    gt = np.linalg.inv(seq.gt_poses[0]) @ seq.gt_poses
-    gt = gt[[int(np.argmin(np.abs(seq.gt_stamps - t))) for t in ts]]
-    full_ate = ate.ate(poses[:, :3, 3], gt[:, :3, 3])
-    n_kf = sum(o["is_keyframe"] for o in outs)
-    conv = float(np.mean([o["registration_ok"] for o in outs[1:]]))
-    say(f"engine: {n_frames} frames in {engine_s:.2f} s = {n_frames / engine_s:.2f} frames/s; "
-        f"full ATE {full_ate['rmse']:.4f} m (JAX engine on the CPU: {REF_ATE_M:.4f} m, limit "
-        f"{MAX_ATE_RATIO}x); keyframes {n_kf}; converged share {conv:.4f}")
-    say(f"engine launches: K1 {k1_eng} ({k1_eng / n_frames:.2f} per frame), K3 {k3_eng} "
-        f"({k3_eng / n_frames:.2f} per frame)")
-    for name, v in (("wall clock", wall_ms), ("CUDA events", ev_ms)):
-        say(f"per-frame latency by {name} over frames 1..{n_frames - 1}: median "
-            f"{np.median(v[1:]):.3f} ms, p95 {np.percentile(v[1:], 95):.3f} ms, max "
-            f"{v[1:].max():.3f} ms; frame 0 {v[0]:.3f} ms {card}")
-    say(f"peak device memory over the engine run {peak_gib:.3f} GiB {card}")
-    check(k1_eng > 0, "the engine never launched K1")
-    check(k3_eng > 0, "the engine never launched K3")
-    check(full_ate["rmse"] <= MAX_ATE_RATIO * REF_ATE_M,
-          f"engine ATE {full_ate['rmse']} m > {MAX_ATE_RATIO} x {REF_ATE_M} m")
+    phase("9 engine: the cp preset as shipped, loop closure on")
+    eng, outs, eng_counts = drive_engine("preset", preset_cfg(presets))
+    check(eng.loop_stats["accepted"] >= 1, "engine preset: no loop closed")
+    check(eng_counts["K1"] > 0 and eng_counts["K3"] > 0, "engine preset: K1 or K3 never launched")
 
-    # the first frames again on the CPU, float32 and float64, same seed and
-    # therefore the same RANSAC draws
+    # the first frames of the loop-off path on the card and on the CPU,
+    # float32 and float64, same seed and therefore the same RANSAC draws
     o = seq.offsets
     head = dataclasses.replace(
         seq, frame_stamps=seq.frame_stamps[:CPU_FRAMES], offsets=o[:CPU_FRAMES + 1],
         xyz=seq.xyz[:o[CPU_FRAMES]], doppler=seq.doppler[:o[CPU_FRAMES]],
         intensity=seq.intensity[:o[CPU_FRAMES]],
     )
-    cpu = {}
-    for dt in (torch.float32, torch.float64):
-        e = pipeline.Engine(cfg_e, dtype=dt, seed=ENGINE_SEED, device="cpu")
-        cpu[dt] = datasets.replay(e, head, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY)
-    card_p = np.stack([x["pose"] for x in outs[:CPU_FRAMES]])
-    cpu32, cpu64 = (np.stack([x["pose"] for x in cpu[dt]]) for dt in (torch.float32, torch.float64))
+    runs = {}
+    for key, where, dt in (("card", dev, torch.float32), ("cpu32", "cpu", torch.float32),
+                           ("cpu64", "cpu", torch.float64)):
+        e = pipeline.Engine(loop_off_cfg(presets), dtype=dt, seed=ENGINE_SEED, device=where)
+        runs[key] = datasets.replay(e, head, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY)
+    card_p, cpu32, cpu64 = (np.stack([x["pose"] for x in runs[k]]) for k in ("card", "cpu32", "cpu64"))
     gap, band = np.abs(card_p - cpu32).max(), np.abs(cpu32 - cpu64).max()
-    same_kf = [x["is_keyframe"] for x in outs[:CPU_FRAMES]] == [x["is_keyframe"] for x in cpu[torch.float32]]
+    same_kf = [x["is_keyframe"] for x in runs["card"]] == [x["is_keyframe"] for x in runs["cpu32"]]
     tol = CPU_BAND_FACTOR * band + CPU_BAND_FLOOR_M
-    say(f"first {CPU_FRAMES} frames, card vs CPU float32: largest pose gap {gap:.3e} "
+    say(f"loop-off path, first {CPU_FRAMES} frames, card vs CPU float32: largest pose gap {gap:.3e} "
         f"(CPU float32 vs float64: {band:.3e}; tolerance {tol:.3e}); is_keyframe flags "
         f"{'equal' if same_kf else 'differ'}")
     check(gap <= tol, f"card and CPU differ by {gap} > {tol}")
 
-    phase("8 K3 against its plain twin")
+    phase("10 engine: exact registration (use_fast_path=False)")
+    eng_x, _, exact_counts = drive_engine("exact", exact_cfg(presets))
+    check(exact_counts["K2"] > 0, "engine exact: K2 never launched")
+
+    phase("11 K3 against its plain twin")
     bk = eng.state.backend  # the last frame's fitness inputs (backend/slam.py)
     rel = lie.se3_matrix(bk.odom_R[-1].T @ bk.odom_R[-2], bk.odom_R[-1].T @ (bk.odom_p[-2] - bk.odom_p[-1]))
     q3 = lie.transform_points(rel, bk.xyz[-2])[None].contiguous()
@@ -445,8 +627,13 @@ def main() -> None:
     m3 = bk.cloud_mask[-1][None].contiguous()
     k3_err = compare_k3("engine inputs", nn_argmin, q3, r3, m3)[0]
     k3_err = max(k3_err, k3_cases(nn_argmin, dev))
+    # K2 on the exact engine's own last correspondence step: the odometry
+    # keyframe as target, the last keyframe cloud as query
+    xs = eng_x.state
+    k2_eng = exact_corr_inputs(apdgicp._map(xs.odo.target, lambda t_: t_[None]), xs.kf_clouds[-1][0][None])
+    k2_err = max(k2_err, compare_k2("exact engine inputs", nn_corr, *k2_eng)[0])
 
-    phase("9 K3 timing")
+    phase("12 K3 and K2 timing")
 
     def k3_library(q, r, m):  # bmm + norms + masked argmin: the plain-torch composition
         d2 = (q * q).sum(-1)[..., None] + (r * r).sum(-1)[:, None, :] - 2.0 * torch.bmm(q, r.transpose(1, 2))
@@ -454,11 +641,20 @@ def main() -> None:
         idx = torch.argmin(d2, dim=-1)
         return idx, torch.take_along_dim(d2, idx[..., None], dim=-1)
 
+    def k2_library(q, r, m, f):  # ... and a take_along_dim gather of the winner's row
+        idx, d2 = k3_library(q, r, m)
+        return idx, d2, torch.take_along_dim(f, idx[..., None], dim=1)
+
+    def bound(ops, nbytes):
+        t_ops, t_bytes = ops / H100_F32_OPS, nbytes / H100_BYTES
+        return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
     rng = np.random.default_rng(9)
     qb = torch.as_tensor(rng.normal(size=(256, 1024, 3)) * 10, dtype=torch.float32, device=dev)
     rb = torch.as_tensor(rng.normal(size=(256, 1024, 3)) * 10, dtype=torch.float32, device=dev)
     mb = torch.ones((256, 1024), dtype=torch.bool, device=dev)
-    k3 = {}
+    fb = torch.as_tensor(rng.normal(size=(256, 1024, 12)), dtype=torch.float32, device=dev)
+    k3, k2 = {}, {}
     for key, (q, r, m), reps in (("engine", (q3, r3, m3), 200), ("B=256", (qb, rb, mb), 20)):
         Bq, Nq, Mq = q.shape[0], q.shape[1], r.shape[1]
         ms = time_ms(lambda: nn_argmin.nearest_neighbor(q, r, m), reps=reps, warmup=3)
@@ -466,22 +662,39 @@ def main() -> None:
         lms = time_ms(lambda: k3_library(q, r, m), reps=reps, warmup=3)
         ops = 8 * Nq * int(m.sum().item())  # every query against every valid ref
         nbytes = 4 * (Bq * Nq * 3 + Bq * Mq * 3 + 2 * Bq * Nq) + Bq * Mq
-        t_ops, t_bytes = ops / H100_F32_OPS, nbytes / H100_BYTES
-        k3[key] = {"ms": ms, "plain_ms": pms, "bound_ms": 1e3 * max(t_ops, t_bytes),
-                   "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lms}
+        bms, by = bound(ops, nbytes)
+        k3[key] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by, "library_ms": lms}
         say(f"K3 at {key} (B,N,M={Bq},{Nq},{Mq}): {ms:.4f} ms/launch, plain twin {pms:.4f} ms, "
-            f"bmm + masked argmin {lms:.4f} ms, bound {k3[key]['bound_ms']:.5f} ms "
-            f"({k3[key]['bound_by']}: {ops:.3e} ops, {nbytes:.3e} bytes) {card}")
-    say(f"K3 launches per frame on the engine: {k3_eng / n_frames:.3f}")
+            f"bmm + masked argmin {lms:.4f} ms, bound {bms:.5f} ms ({by}: {ops:.3e} ops, "
+            f"{nbytes:.3e} bytes) {card}")
+    for key, (q, r, m, f), reps in (("exact engine", k2_eng, 200), ("B=256", (qb, rb, mb, fb), 20)):
+        Bq, Nq, Mq, F = q.shape[0], q.shape[1], r.shape[1], f.shape[2]
+        ms = time_ms(lambda: nn_corr.fused_correspondence(q, r, m, f), reps=reps, warmup=3)
+        pms = time_ms(lambda: nn_corr.fused_correspondence_plain(q, r, m, f), reps=5)
+        lms = time_ms(lambda: k2_library(q, r, m, f), reps=reps, warmup=3)
+        ops = 8 * Nq * int(m.sum().item())
+        # inputs read once (feats in full), outputs written once (g included)
+        nbytes = 4 * (Bq * Nq * 3 + Bq * Mq * 3 + Bq * Mq * F + 2 * Bq * Nq + Bq * Nq * F) + Bq * Mq
+        bms, by = bound(ops, nbytes)
+        k2[key] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by, "library_ms": lms}
+        say(f"K2 at {key} (B,N,M,F={Bq},{Nq},{Mq},{F}): {ms:.4f} ms/launch, plain twin {pms:.4f} ms, "
+            f"bmm + masked argmin + take_along_dim {lms:.4f} ms, bound {bms:.5f} ms ({by}: "
+            f"{ops:.3e} ops, {nbytes:.3e} bytes) {card}")
+    say(f"launches per frame: preset engine K1 {eng_counts['K1'] / n_frames:.3f}, K3 "
+        f"{eng_counts['K3'] / n_frames:.3f}; exact engine K2 {exact_counts['K2'] / n_frames:.3f}, "
+        f"K3 {exact_counts['K3'] / n_frames:.3f}")
     torch.cuda.synchronize()
     say(f"wall time {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
         {"name": "K1 fused_gather", "route": "cuda", "source": "rivslam_tpu_torch/csrc/nn_gather.cu",
-         "replaces": "rivslam_tpu/ops/pallas_nn.py:179", "launches": k1_eng,
+         "replaces": "rivslam_tpu/ops/pallas_nn.py:179", "launches": eng_counts["K1"],
          "max_abs_err": k1_err, **k1},
+        {"name": "K2 fused_correspondence", "route": "cuda", "source": "rivslam_tpu_torch/csrc/nn_corr.cu",
+         "replaces": "rivslam_tpu/ops/pallas_nn.py:74", "launches": exact_counts["K2"],
+         "max_abs_err": k2_err, **k2["exact engine"]},
         {"name": "K3 nearest_neighbor", "route": "cuda", "source": "rivslam_tpu_torch/csrc/nn_argmin.cu",
-         "replaces": "rivslam_tpu/ops/pallas_nn.py:29", "launches": k3_eng,
+         "replaces": "rivslam_tpu/ops/pallas_nn.py:29", "launches": eng_counts["K3"],
          "max_abs_err": k3_err, **k3["engine"]},
     ]
     say(smi)

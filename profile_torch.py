@@ -1,7 +1,7 @@
 """Where the time of the port goes on the card.
 
     python3 profile_torch.py [--cov KNN|RBF] [--k1 on|off]
-    python3 profile_torch.py --engine [--warmup 8] [--frames 4]
+    python3 profile_torch.py --engine [--loop] [--warmup 8] [--frames 4]
 
 The default mode runs bench.py's protocol (B=256 frame pairs, capacity
 1024, target prepared once, identity guess) through rivslam_tpu_torch on one
@@ -10,13 +10,18 @@ then traces one batch with torch.profiler and prints the device time by
 kernel, the number of kernel launches, and the device's idle share over the
 traced batch.
 
-``--engine`` runs the per-frame engine over the "cp" course of
-chip_smoke.py (its configuration, capacity 1024, IMU capacity 64), lets
-``--warmup`` frames pass, then traces each of the next ``--frames`` frames of
-``process_frame`` on its own and prints per frame: wall time, the host time
-of each stage (the Engine's ``record_function`` scopes), kernel launches
-(and K1/K3 launches), device busy ms, idle share and the top device
-operations.
+``--engine`` runs the engine over the "cp" course of chip_smoke.py
+(capacity 1024, IMU capacity 64; loop closure off, as chip_smoke.py's
+card-vs-CPU check, or with ``--loop`` the "cp" preset as shipped, loop
+closure on), lets ``--warmup`` frames pass, then traces each of the next
+``--frames`` frames of ``process_frame`` on its own and prints per frame:
+wall time, the host time of each stage (the Engine's ``record_function``
+scopes, the keyframe graph's among them: ``engine.keyframe``,
+``engine.loop_detection``, ``engine.global_solve``), kernel launches (and
+K1/K2/K3 launches), whether a loop closed, device busy ms, idle share and
+the top device operations. On the cp course the first loop candidates come
+after ~100 frames (50 m of travel), so ``--loop --warmup 100 --frames 20``
+traces the loop closure.
 
 The last line is one JSON object with these numbers. Needs a CUDA device.
 """
@@ -41,6 +46,7 @@ def main() -> None:
     ap.add_argument("--cov", choices=("KNN", "RBF"), default="KNN")
     ap.add_argument("--k1", choices=("on", "off"), default="on")
     ap.add_argument("--engine", action="store_true", help="profile the per-frame engine")
+    ap.add_argument("--loop", action="store_true", help="with --engine: loop closure on")
     ap.add_argument("--warmup", type=int, default=8)
     ap.add_argument("--frames", type=int, default=4)
     args = ap.parse_args()
@@ -129,29 +135,44 @@ def _device_kernels(prof):
 
 
 STAGES = ("engine.preprocess", "engine.odometry", "engine.backend", "backend.preintegrate",
-          "backend.information", "backend.window_solve")
+          "backend.information", "backend.window_solve", "engine.keyframe",
+          "engine.loop_detection", "engine.global_solve")
 
 
 def profile_engine(args) -> None:
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import COURSE, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY, ENGINE_SEED, engine_cfg
+    from chip_smoke import (COURSE, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY, ENGINE_SEED,
+                            loop_off_cfg, preset_cfg)
     from rivslam_tpu_torch import pipeline, presets
     from rivslam_tpu_torch.io import datasets, synthetic
-    from rivslam_tpu_torch.ops import nn_argmin, nn_gather
+    from rivslam_tpu_torch.ops import nn_argmin, nn_corr, nn_gather
+
+    counted = {"K1": nn_gather.fused_gather, "K2": nn_corr.fused_correspondence,
+               "K3": nn_argmin.nearest_neighbor}
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    seq, _ = synthetic.simulate_sequence(**dict(COURSE, n_frames=args.warmup + args.frames))
-    eng = pipeline.Engine(engine_cfg(presets), seed=ENGINE_SEED, device="cuda")
-    state = {"prof": None, "t0": 0.0, "k": (0, 0)}
+    # the first frames of chip_smoke.py's course: simulated at its full
+    # length (its IMU noise stream depends on the frame count), then cut
+    seq, _ = synthetic.simulate_sequence(**COURSE)
+    n = min(args.warmup + args.frames, seq.num_frames)
+    o = seq.offsets
+    seq = dataclasses.replace(
+        seq, frame_stamps=seq.frame_stamps[:n], offsets=o[:n + 1], xyz=seq.xyz[:o[n]],
+        doppler=seq.doppler[:o[n]], intensity=seq.intensity[:o[n]],
+    )
+    cfg = (preset_cfg if args.loop else loop_off_cfg)(presets)
+    eng = pipeline.Engine(cfg, seed=ENGINE_SEED, device="cuda")
+    state = {"prof": None, "t0": 0.0, "k": {}, "loops": 0}
     rows = []
 
     def start():
         state["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-        state["k"] = (nn_gather.fused_gather.launches, nn_argmin.nearest_neighbor.launches)
+        state["k"] = {name: fn.launches for name, fn in counted.items()}
+        state["loops"] = eng.loop_stats["accepted"]
         state["prof"].start()
         state["t0"] = time.perf_counter()
 
@@ -168,8 +189,9 @@ def profile_engine(args) -> None:
                     stage_ms[e.name] += e.cpu_time_total / 1e3
             rows.append({
                 "frame": i, "wall_ms": wall_ms, "kernel_launches": len(kernels),
-                "k1_launches": nn_gather.fused_gather.launches - state["k"][0],
-                "k3_launches": nn_argmin.nearest_neighbor.launches - state["k"][1],
+                **{f"{name.lower()}_launches": fn.launches - state["k"][name]
+                   for name, fn in counted.items()},
+                "loop_closed": eng.loop_stats["accepted"] > state["loops"],
                 "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms, "stage_ms": stage_ms,
                 "top": [[name[:80], sum(t), len(t)] for name, t in top],
             })
@@ -178,17 +200,20 @@ def profile_engine(args) -> None:
             start()
 
     datasets.replay(eng, seq, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY, progress=tick)
-    print(f"{smi}; engine, cp course, capacity {ENGINE_CAPACITY}; frames "
-          f"{args.warmup}..{args.warmup + args.frames - 1} traced one by one", flush=True)
+    print(f"{smi}; engine, cp course, loop closure {'on' if args.loop else 'off'}, capacity "
+          f"{ENGINE_CAPACITY}; frames {args.warmup}..{args.warmup + args.frames - 1} traced one "
+          f"by one; loop_stats {json.dumps(eng.loop_stats)}", flush=True)
     for r in rows:
         print(f"frame {r['frame']}: wall {r['wall_ms']:.3f} ms, {r['kernel_launches']} kernel "
-              f"launches (K1 {r['k1_launches']}, K3 {r['k3_launches']}), device busy "
-              f"{r['device_busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}", flush=True)
+              f"launches (K1 {r['k1_launches']}, K2 {r['k2_launches']}, K3 {r['k3_launches']}), "
+              f"device busy {r['device_busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}"
+              f"{', loop closed' if r['loop_closed'] else ''}", flush=True)
         print("  host ms by stage: " + ", ".join(
             f"{k} {v:.1f}" for k, v in r["stage_ms"].items()), flush=True)
         for name, ms, n in r["top"]:
             print(f"  {ms:9.3f} ms  {n:5d}x  {name}", flush=True)
-    print(json.dumps({"card": smi, "mode": "engine", "frames": rows}), flush=True)
+    print(json.dumps({"card": smi, "mode": "engine", "loop": args.loop,
+                      "loop_stats": eng.loop_stats, "frames": rows}), flush=True)
 
 
 if __name__ == "__main__":

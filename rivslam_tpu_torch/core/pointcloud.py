@@ -75,6 +75,17 @@ class RadarCloud:
         )
 
 
+def compact(cloud: RadarCloud) -> RadarCloud:
+    """Move valid points to the front (stable), keeping the capacity."""
+    order = torch.argsort((~cloud.mask).to(torch.uint8), dim=-1, stable=True)  # valid first
+    return RadarCloud(
+        xyz=torch.take_along_dim(cloud.xyz, order[..., None], dim=-2),
+        doppler=torch.take_along_dim(cloud.doppler, order, dim=-1),
+        intensity=torch.take_along_dim(cloud.intensity, order, dim=-1),
+        mask=torch.take_along_dim(cloud.mask, order, dim=-1),
+    )
+
+
 def masked_xyz(cloud: RadarCloud, sentinel: float = SENTINEL) -> torch.Tensor:
     """xyz with invalid rows pushed to a far sentinel (keeps NN searches honest)."""
     return torch.where(cloud.mask[..., None], cloud.xyz, sentinel)

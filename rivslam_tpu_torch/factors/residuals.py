@@ -1,13 +1,13 @@
-"""Residuals of the window backend's factors (port of the live part of
-``rivslam_tpu/factors/residuals.py``; the GPS/baro priors wait for the
-keyframe-graph slice).
+"""Residuals of the backend's factors (port of
+``rivslam_tpu/factors/residuals.py``).
 
 Each function is batched over leading dims, so the same code serves the
 whole window ([W, ...], for chi2) and one slot under ``torch.func.vmap``
 (for the Jacobians). Edges (radar_graph_slam_nodelet.cpp:415-462):
 EdgeGyroRW / EdgeAccRW, EdgeSE3 (relative odometry), EdgePose (unary
 scan-match prior), EdgeSE3Interial (IMU preintegration),
-EdgeRadar3DVelocity and EdgeSE3Plane.
+EdgeRadar3DVelocity and EdgeSE3Plane; and the unary priors of the keyframe
+graph (GPS, barometer, orientation, direction, navigation state).
 """
 
 from __future__ import annotations
@@ -96,3 +96,36 @@ def se3_plane(R, p, plane_node_w: torch.Tensor, plane_meas_s: torch.Tensor) -> t
          local[..., 3] - plane_meas_s[..., 3]],
         dim=-1,
     )
+
+
+def prior_xy(p, xy_meas) -> torch.Tensor:
+    """EdgeSE3PriorXY (GPS)."""
+    return p[..., :2] - xy_meas
+
+
+def prior_xyz(p, xyz_meas) -> torch.Tensor:
+    """EdgeSE3PriorXYZ (GPS + altitude)."""
+    return p - xyz_meas
+
+
+def prior_z(p, z_meas) -> torch.Tensor:
+    """EdgeSE3PriorZ (barometer altitude anchor, edge_se3_priorz.hpp:1-76).
+    The engine applies it as a z-only row of the keyframe graph's per-axis
+    diagonal translation prior; this scalar form is its unit-testable twin."""
+    return p[..., 2:3] - z_meas
+
+
+def prior_quat(R, R_meas) -> torch.Tensor:
+    """EdgeSE3PriorQuat: orientation prior."""
+    return lie.so3_log(_t(R_meas) @ R)
+
+
+def prior_vec(R, v_dir, v_meas) -> torch.Tensor:
+    """EdgeSE3PriorVec: direction prior (e.g. gravity in the IMU frame)."""
+    return mv(_t(R), v_dir) - v_meas
+
+
+def prior_navstate(R, p, v, bg, ba, R0, p0, v0, bg0, ba0) -> torch.Tensor:
+    """EdgePriorPoseNavState (g2o_types.hpp:165-239), 15-dim."""
+    er = lie.so3_log(_t(R0) @ R)
+    return torch.cat([er, p - p0, v - v0, bg - bg0, ba - ba0], dim=-1)

@@ -1,29 +1,47 @@
-"""APDGICP scan registration: dispatch and result types (port of
-``rivslam_tpu/frontend/apdgicp.py``).
+"""APDGICP scan registration (port of ``rivslam_tpu/frontend/apdgicp.py``):
+covariance estimation, the exact LM/GN registration, and the method
+dispatch.
 
 The port batches over a leading problem dim B where the reference vmaps.
 ``prepare``, ``register_dispatch`` and ``prepare_and_register`` also take a
 single unbatched problem, as the reference's do, and then return unbatched
 results.
 
-Ported so far: the fast (structure-of-arrays) path for PLANE covariances and
-the FAST_APDGICP / FAST_GICP / GICP / GICP_OMP registration. The exact
-``register`` and ``estimate_covariances``, ICP, VGICP and NDT raise
-NotImplementedError until their slice of the port (ROADMAP.md, open items,
-queue 1 "Modules still to port").
+Two paths, as in the reference:
+- the fast (structure-of-arrays) path, ``frontend/apdgicp_fast.py``, for
+  PLANE covariances and FAST_APDGICP / FAST_GICP / GICP / GICP_OMP with
+  ``use_fast_path`` (the default);
+- the exact path here: ``estimate_covariances`` (KNN or RBF moments, every
+  regularization) and ``register``, for ``use_fast_path=False``, the ICP and
+  APDGICP methods, and any regularization other than PLANE. Its
+  correspondence step is K2 (``ops/nn_corr``): one launch per step gathers
+  each transformed source point's nearest target xyz and covariance.
+
+Both registrations share one LM/GN driver, ``solve_lm``: the reference's
+nested ``lax.while_loop``s become capped host loops over all B problems with
+per-problem done masks; an iteration past done leaves that problem's state
+bitwise unchanged, so B problems give what B separate reference calls give.
+
+VGICP and NDT raise NotImplementedError until they are ported (ROADMAP.md,
+queue 1, item 5 "Options").
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
+from rivslam_tpu_torch.core import lie
 from rivslam_tpu_torch.core.config import RegistrationConfig
 from rivslam_tpu_torch.core.device import resolve
+from rivslam_tpu_torch.core.pointcloud import SENTINEL
+from rivslam_tpu_torch.ops import eig3, knn, nn_corr
 
-_QUEUE = "not ported yet: see ROADMAP.md, open items, queue 1 (modules still to port)"
+_FAST_METHODS = ("FAST_APDGICP", "FAST_GICP", "GICP", "GICP_OMP")
+_VOXEL_METHODS = ("VGICP", "FAST_VGICP", "FAST_VGICP_CUDA", "NDT", "NDT_OMP", "NDT_CUDA")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +82,293 @@ def _is_converged(delta_T: torch.Tensor, cfg: RegistrationConfig) -> torch.Tenso
     return torch.maximum(r_delta, t_delta) < 1.0
 
 
+def _se3_step(d: torch.Tensor) -> torch.Tensor:
+    """[B, 6] step [w, t] -> 4x4 with R = exp(w), translation t (NOT
+    se3_exp's coupled translation; lsq_registration_impl.hpp:140-143)."""
+    return lie.se3_matrix(lie.so3_exp(d[:, :3]), d[:, 3:])
+
+
+def _where(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """torch.where with a per-problem [B] condition broadcast over trailing dims."""
+    return torch.where(c.reshape(c.shape + (1,) * (a.ndim - 1)), a, b)
+
+
+def _solve(A: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    # solve_ex: a singular system (a problem without correspondences) yields
+    # inf/nan like the reference's LU solve instead of raising
+    return torch.linalg.solve_ex(A, rhs[..., None])[0][..., 0]
+
+
+def solve_lm(T0: torch.Tensor, cfg: RegistrationConfig, linearize_at, error_at):
+    """The LsqRegistration LM/GN driver (lsq_registration_impl.hpp:55-173)
+    over B problems: ``linearize_at(T) -> (H [B,6,6], b [B,6], y0 [B], ctx)``
+    fixes the correspondences at T; ``error_at(T, ctx) -> [B]`` is the error
+    under them. Returns (T, H at the last accepted step, converged,
+    iterations)."""
+    dtype, dev = T0.dtype, T0.device
+    B = T0.shape[0]
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    eye4 = torch.eye(4, dtype=dtype, device=dev).expand(B, 4, 4)
+    T = T0.clone()
+    lam = torch.full((B,), -1.0, dtype=dtype, device=dev)
+    converged = torch.zeros(B, dtype=torch.bool, device=dev)
+    failed = torch.zeros(B, dtype=torch.bool, device=dev)
+    it = torch.zeros(B, dtype=torch.int32, device=dev)
+    Hf = eye6.expand(B, 6, 6).clone()
+
+    for _ in range(cfg.max_iterations):
+        active = ~converged & ~failed & (it < cfg.max_iterations)
+        if not bool(active.any()):
+            break
+        H, b, y0, ctx = linearize_at(T)
+        if cfg.optimizer == "GN":
+            # step_gn (lsq_registration_impl.hpp:107-123): one undamped solve
+            delta = _se3_step(_solve(H, -b))
+            T = _where(active, delta @ T, T)
+            converged = torch.where(active, _is_converged(delta, cfg), converged)
+            it = it + active.to(torch.int32)
+            Hf = _where(active, H, Hf)
+            continue
+
+        diag_max = torch.amax(torch.abs(torch.diagonal(H, dim1=-2, dim2=-1)), dim=-1)
+        lam_i = torch.where(lam < 0, cfg.lm_init_lambda_factor * diag_max, lam)
+        T_i = T
+        nu = torch.full((B,), 2.0, dtype=dtype, device=dev)
+        done = ~active
+        success = torch.zeros_like(done)
+        conv_i = torch.zeros_like(done)
+        dlast = eye4
+        for _ in range(cfg.lm_max_iterations):
+            run = ~done
+            if not bool(run.any()):
+                break
+            d = _solve(H + lam_i[:, None, None] * eye6, -b)
+            delta = _se3_step(d)
+            T_new = delta @ T
+            yi = error_at(T_new, ctx)
+            denom = torch.sum(d * (lam_i[:, None] * d - b), dim=-1)
+            rho = (y0 - yi) / torch.where(torch.abs(denom) < 1e-30, 1e-30, denom)
+            accept = rho >= 0.0
+            conv_rej = _is_converged(delta, cfg)
+            grow = torch.clamp_min(1 - (2 * rho - 1) ** 3, 1 / 3)
+            T_i = _where(run & accept, T_new, T_i)
+            lam_i = torch.where(run, torch.where(accept, lam_i * grow, nu * lam_i), lam_i)
+            nu = torch.where(run & ~accept, 2 * nu, nu)
+            done = torch.where(run, accept | conv_rej, done)
+            success = torch.where(run, accept, success)
+            conv_i = torch.where(run, conv_rej & ~accept, conv_i)
+            dlast = _where(run & accept, delta, dlast)
+
+        T = _where(active, T_i, T)
+        lam = torch.where(active, lam_i, lam)
+        converged = torch.where(
+            active, torch.where(success, _is_converged(dlast, cfg), conv_i), converged
+        )
+        failed = torch.where(active, ~success & ~conv_i, failed)
+        it = it + active.to(torch.int32)
+        Hf = _where(active & success, H, Hf)
+    return T, Hf, converged, it
+
+
+# ---- the exact path ---------------------------------------------------------
+
+
+def _regularize(cov: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "NONE":
+        return cov
+    if kind == "PLANE":
+        return eig3.plane_regularize(cov, 1e-3)
+    if kind in ("MIN_EIG", "NORMALIZED_MIN_EIG"):
+        vals, vecs = torch.linalg.eigh(cov)
+        if kind == "MIN_EIG":
+            new_vals = torch.clamp_min(vals, 1e-3)
+        else:
+            new_vals = torch.clamp_min(vals / torch.clamp_min(vals[..., -1:], 1e-12), 1e-3)
+        return torch.einsum("...ij,...j,...kj->...ik", vecs, new_vals, vecs)
+    raise ValueError(f"unknown regularization {kind}")
+
+
+def estimate_covariances(
+    xyz: torch.Tensor, mask: torch.Tensor, cfg: RegistrationConfig
+) -> PreparedCloud:
+    """k-NN or RBF covariances with cfg.regularization
+    (fast_apdgicp_impl.hpp:300-363; covariance_estimation_rbf.cu:78-160),
+    batched: xyz [B, N, 3], mask [B, N]."""
+    sxyz = torch.where(mask[..., None], xyz, SENTINEL)
+    if cfg.covariance_method == "RBF":
+        # w = exp(-kw * d2), zeroed beyond max_dist; cov = E_w[xx^T] - mean mean^T
+        d2 = knn.pairwise_sqdist(sxyz, sxyz)
+        w = torch.exp(-cfg.rbf_kernel_width * d2)
+        w = torch.where((d2 <= cfg.rbf_max_dist**2) & mask[..., None, :], w, 0.0).to(xyz.dtype)
+        sw = torch.clamp_min(torch.sum(w, dim=-1, keepdim=True), 1e-6)
+        mean = (w @ xyz) / sw
+        # E_w[xx^T] as one matmul against the per-point outer products (no
+        # [N, M, 3, 3] intermediate)
+        outer = (xyz[..., :, None] * xyz[..., None, :]).flatten(-2)  # [..., M, 9]
+        exx = ((w @ outer) / sw).unflatten(-1, (3, 3))
+        cov = exx - mean[..., :, None] * mean[..., None, :]
+    else:
+        idx, d2 = knn.knn(sxyz, sxyz, mask, cfg.k_correspondences)
+        nb = torch.take_along_dim(xyz[..., None, :, :], idx[..., None].long(), dim=-2)  # [B,N,k,3]
+        w = torch.isfinite(d2).to(xyz.dtype)  # valid neighbour flags
+        wn = torch.clamp_min(torch.sum(w, dim=-1, keepdim=True), 1.0)
+        mean = torch.sum(nb * w[..., None], dim=-2) / wn
+        cent = (nb - mean[..., None, :]) * w[..., None]
+        # as the reference: divided by the valid count (k with full scans)
+        cov = torch.einsum("...ki,...kj->...ij", cent, cent) / wn[..., None]
+    return PreparedCloud(xyz=xyz, mask=mask, cov=_regularize(cov, cfg.regularization))
+
+
+def _inv3(M: torch.Tensor) -> torch.Tensor:
+    """Batched closed-form 3x3 inverse (adjugate / det)."""
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    A = e * i - f * h
+    B = -(d * i - f * g)
+    C = d * h - e * g
+    D = -(b * i - c * h)
+    E = a * i - c * g
+    F = -(a * h - b * g)
+    G = b * f - c * e
+    H = -(a * f - c * d)
+    I = a * e - b * d  # noqa: E741 (the adjugate's standard names)
+    det = a * A + b * B + c * C
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-30, 1.0, det)
+    adj = torch.stack(
+        [torch.stack([A, D, G], dim=-1), torch.stack([B, E, H], dim=-1),
+         torch.stack([C, F, I], dim=-1)],
+        dim=-2,
+    )
+    return adj * inv_det[..., None, None]
+
+
+def adaptive_cov(pt: torch.Tensor, cfg: RegistrationConfig) -> torch.Tensor:
+    """Per-point APD covariance C_dist = R diag(s)^2 R^T of the TRANSFORMED
+    source point (fast_apdgicp_impl.hpp:163-184)."""
+    x, y, z = pt[..., 0], pt[..., 1], pt[..., 2]
+    dist = torch.sqrt(torch.clamp_min(x * x + y * y + z * z, 1e-12))
+    cos_aoa = torch.cos(torch.atan2(x, torch.sqrt(y * y + z * z)))
+    safe_cos = torch.where(torch.abs(cos_aoa) < 1e-6, 1e-6, cos_aoa)
+    s_x = dist * cfg.dist_var / 400.0
+    s_y = dist * math.sin(math.radians(cfg.azimuth_var)) / safe_cos
+    s_z = dist * math.sin(math.radians(cfg.elevation_var)) / safe_cos
+    elevation = torch.atan2(torch.sqrt(x * x + y * y), z)
+    azimuth = torch.atan2(y, x)
+    # R = Rz(azimuth) @ Ry(elevation)
+    ca, sa = torch.cos(azimuth), torch.sin(azimuth)
+    ce, se = torch.cos(elevation), torch.sin(elevation)
+    zeros, ones = torch.zeros_like(ca), torch.ones_like(ca)
+    Rz = torch.stack(
+        [torch.stack([ca, -sa, zeros], dim=-1), torch.stack([sa, ca, zeros], dim=-1),
+         torch.stack([zeros, zeros, ones], dim=-1)],
+        dim=-2,
+    )
+    Ry = torch.stack(
+        [torch.stack([ce, zeros, se], dim=-1), torch.stack([zeros, ones, zeros], dim=-1),
+         torch.stack([-se, zeros, ce], dim=-1)],
+        dim=-2,
+    )
+    R = Rz @ Ry
+    s2 = torch.stack([s_x * s_x, s_y * s_y, s_z * s_z], dim=-1)
+    return torch.einsum("...ij,...j,...kj->...ik", R, s2, R)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Corr:
+    """Correspondences fixed at one linearization point."""
+
+    idx: torch.Tensor  # [B, N] int32 the nearest valid target
+    tgt: torch.Tensor  # [B, N, 3] its xyz
+    corr: torch.Tensor  # [B, N] bool
+    mah: torch.Tensor  # [B, N, 3, 3] Mahalanobis weights (0 off corr)
+    d2: torch.Tensor  # [B, N] NN squared distances, clamped at 0
+
+
+def _correspondences(T, source: PreparedCloud, tgt_sent, tgt_mask, tgt_feats, cfg):
+    """NN correspondences + Mahalanobis (fast_apdgicp_impl.hpp:133-193).
+
+    The nearest target, its xyz and its covariance come from one K2 launch
+    (its plain twin on CPU tensors). K2's d2 is unclamped; the reference's
+    ``knn.pairwise_sqdist`` clamps at 0, so it is clamped here for the gate
+    and the fitness."""
+    pt = lie.transform_points(T, source.xyz)
+    idx, d2, g = nn_corr.fused_correspondence(pt.contiguous(), tgt_sent, tgt_mask, tgt_feats)
+    d2 = torch.clamp_min(d2.to(pt.dtype), 0.0)
+    g = g.to(pt.dtype)
+    corr = source.mask & (d2 < cfg.max_correspondence_distance**2)
+    cov_A = source.cov
+    cov_B = g[..., 3:].reshape(g.shape[:-1] + (3, 3))
+    if cfg.method == "FAST_APDGICP":
+        cd = adaptive_cov(pt, cfg)
+    else:  # no adaptive term (the reference applies it to FAST_APDGICP only)
+        cd = torch.zeros_like(cov_A)
+    R = T[:, None, :3, :3]
+    rcr = (cov_B + cd) + R @ (cov_A + cd) @ R.transpose(-1, -2)
+    mah = _inv3(rcr)
+    if cfg.method == "ICP":
+        # plain point-to-point ICP (registrations.cpp:52): identity weighting
+        mah = torch.eye(3, dtype=mah.dtype, device=mah.device).expand(mah.shape)
+    mah = torch.where(corr[..., None, None], mah, 0.0)
+    return _Corr(idx=idx, tgt=g[..., :3], corr=corr, mah=mah, d2=d2)
+
+
+def _linearize(T, source: PreparedCloud, c: _Corr):
+    """H, b, error from fixed correspondences (fast_apdgicp_impl.hpp:221-260)."""
+    pt = lie.transform_points(T, source.xyz)
+    e = c.tgt - pt  # [B, N, 3]
+    me = torch.einsum("...nij,...nj->...ni", c.mah, e)
+    err = torch.sum(torch.where(c.corr, torch.sum(e * me, dim=-1), 0.0), dim=-1)
+    # J = d e / d [w, t] = [skew(pt), -I]   (3x6)
+    neg_eye = -torch.eye(3, dtype=pt.dtype, device=pt.device).expand(pt.shape + (3,))
+    J = torch.cat([lie.hat(pt), neg_eye], dim=-1)  # [B, N, 3, 6]
+    MJ = c.mah @ J
+    H = torch.einsum("...nji,...njk->...ik", J, MJ)
+    b = torch.einsum("...nji,...nj->...i", J, me)
+    return H, b, err
+
+
+def _compute_error(T, source: PreparedCloud, c: _Corr):
+    """Error at T under FIXED correspondences (fast_apdgicp_impl.hpp:275-298)."""
+    e = c.tgt - lie.transform_points(T, source.xyz)
+    quad = torch.einsum("...nij,...ni,...nj->...n", c.mah, e, e)
+    return torch.sum(torch.where(c.corr, quad, 0.0), dim=-1)
+
+
+def register(
+    source: PreparedCloud, target: PreparedCloud, guess: torch.Tensor, cfg: RegistrationConfig
+) -> RegistrationResult:
+    """Exact LM/GN alignment of B sources onto B targets (the reference's
+    ``register``): fields [B, N, ...], guess [B, 4, 4]."""
+    dtype = source.xyz.dtype
+    B, M = target.xyz.shape[:2]
+    tmask = target.mask.contiguous()
+    tgt_sent = torch.where(tmask[..., None], target.xyz, SENTINEL).contiguous()
+    # what K2 gathers per target: xyz and the full covariance (F = 3 + 9)
+    tgt_feats = torch.cat([target.xyz, target.cov.reshape(B, M, 9)], dim=-1).contiguous()
+
+    def linearize_at(T):
+        c = _correspondences(T, source, tgt_sent, tmask, tgt_feats, cfg)
+        return (*_linearize(T, source, c), c)
+
+    def error_at(T, c):
+        return _compute_error(T, source, c)
+
+    T, Hf, converged, it = solve_lm(guess.to(dtype), cfg, linearize_at, error_at)
+    # final correspondence stats at the solution
+    c = _correspondences(T, source, tgt_sent, tmask, tgt_feats, cfg)
+    ncorr = torch.sum(c.corr, dim=-1)
+    fitness = torch.sum(torch.where(c.corr, c.d2, 0.0), dim=-1) / torch.clamp_min(ncorr, 1)
+    _, _, final_err = _linearize(T, source, c)
+    return RegistrationResult(
+        T=T, H=Hf, error=final_err, converged=converged, iterations=it,
+        num_correspondences=ncorr.to(torch.int32), fitness=fitness,
+    )
+
+
+# ---- dispatch -----------------------------------------------------------------
+
+
 def prepare(xyz, mask, cfg: RegistrationConfig, device="cuda") -> PreparedCloud:
     """Covariance estimation honoring cfg.use_fast_path and
     cfg.covariance_method (KNN | RBF). xyz [B, N, 3] or [N, 3]."""
@@ -72,16 +377,13 @@ def prepare(xyz, mask, cfg: RegistrationConfig, device="cuda") -> PreparedCloud:
     mask = _as_tensor(mask, dev)
     if xyz.ndim == 2:
         return _map(prepare(xyz[None], mask[None], cfg, dev), lambda t: t[0])
-    if not (cfg.use_fast_path and cfg.regularization == "PLANE"):
-        raise NotImplementedError(
-            f"exact covariance estimation (use_fast_path={cfg.use_fast_path}, "
-            f"regularization={cfg.regularization!r}) is {_QUEUE}"
-        )
-    from rivslam_tpu_torch.frontend import apdgicp_fast
+    if cfg.use_fast_path and cfg.regularization == "PLANE":
+        from rivslam_tpu_torch.frontend import apdgicp_fast
 
-    if cfg.covariance_method == "RBF":
-        return apdgicp_fast.estimate_covariances_rbf_fast(xyz, mask, cfg)
-    return apdgicp_fast.estimate_covariances_fast(xyz, mask, cfg)
+        if cfg.covariance_method == "RBF":
+            return apdgicp_fast.estimate_covariances_rbf_fast(xyz, mask, cfg)
+        return apdgicp_fast.estimate_covariances_fast(xyz, mask, cfg)
+    return estimate_covariances(xyz, mask, cfg)
 
 
 def register_dispatch(
@@ -89,7 +391,9 @@ def register_dispatch(
     device="cuda",
 ) -> RegistrationResult:
     """Method factory (registrations.cpp:38-140): FAST_APDGICP / FAST_GICP /
-    GICP / GICP_OMP take the structure-of-arrays fast path."""
+    GICP / GICP_OMP take the structure-of-arrays fast path when
+    cfg.use_fast_path; everything else but VGICP/NDT takes the exact
+    ``register`` (ICP drops the Mahalanobis metric)."""
     dev = resolve(device)
     source = _map(source, lambda t: t.to(dev))
     target = _map(target, lambda t: t.to(dev))
@@ -101,13 +405,16 @@ def register_dispatch(
         )
         return _map(batched, lambda t: t[0])
     m = cfg.method
-    if cfg.use_fast_path and m in ("FAST_APDGICP", "FAST_GICP", "GICP", "GICP_OMP"):
+    if m in _VOXEL_METHODS:
+        raise NotImplementedError(
+            f"registration method {m!r} is not ported yet: see ROADMAP.md, queue 1, "
+            "item 5 (Options: VGICP/NDT)"
+        )
+    if cfg.use_fast_path and m in _FAST_METHODS:
         from rivslam_tpu_torch.frontend import apdgicp_fast
 
         return apdgicp_fast.register_fast(source, target, guess, cfg)
-    raise NotImplementedError(
-        f"registration method {m!r} (use_fast_path={cfg.use_fast_path}) is {_QUEUE}"
-    )
+    return register(source, target, guess, cfg)
 
 
 def prepare_and_register(

@@ -7,11 +7,11 @@ the reference. H = J^T M J with J = [skew(p) | -I] uses:
     H_rr[:,j] = p x C[j,:],  H_rt = C,  H_tt = M
     b_rot = -(p x (M e)),    b_trans = -(M e)
 
-The reference vmaps two nested ``lax.while_loop``s over problems. Here one
-loop drives all B problems with a per-problem ``active`` mask, for the
-outer LM loop (at most ``max_iterations``) and the inner lambda search (at
-most ``lm_max_iterations``); each problem's state follows the reference's
-control flow exactly, and a loop ends when no problem is active.
+The reference vmaps two nested ``lax.while_loop``s over problems. Here the
+shared driver ``apdgicp.solve_lm`` runs all B problems with per-problem done
+masks, for the outer LM loop (at most ``max_iterations``) and the inner
+lambda search (at most ``lm_max_iterations``); each problem's state follows
+the reference's control flow exactly.
 
 The KNN covariance threshold is the EXACT k-th neighbour distance
 (``torch.topk``); the reference uses ``lax.approx_min_k``, which is exact on
@@ -24,14 +24,9 @@ import math
 
 import torch
 
-from rivslam_tpu_torch.core import lie
 from rivslam_tpu_torch.core.config import RegistrationConfig
 from rivslam_tpu_torch.core.pointcloud import SENTINEL
-from rivslam_tpu_torch.frontend.apdgicp import (
-    PreparedCloud,
-    RegistrationResult,
-    _is_converged,
-)
+from rivslam_tpu_torch.frontend.apdgicp import PreparedCloud, RegistrationResult, solve_lm
 from rivslam_tpu_torch.ops import eig3, nn_gather
 
 
@@ -175,17 +170,6 @@ def _adaptive_cov_soa(px, py, pz, cfg: RegistrationConfig):
     return c00, c01, c02, c11, c12, c22
 
 
-def _se3_step(d: torch.Tensor) -> torch.Tensor:
-    """[B, 6] step [w, t] -> 4x4 with R = exp(w), translation t
-    (lsq_registration_impl.hpp:140-143)."""
-    return lie.se3_matrix(lie.so3_exp(d[:, :3]), d[:, 3:])
-
-
-def _where(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """torch.where with a per-problem [B] condition broadcast over trailing dims."""
-    return torch.where(c.reshape(c.shape + (1,) * (a.ndim - 1)), a, b)
-
-
 def register_fast(
     source: PreparedCloud,
     target: PreparedCloud,
@@ -195,7 +179,6 @@ def register_fast(
     """Batched counterpart of the reference's register_fast: B problems,
     source/target fields [B, N, ...], guess [B, 4, 4]."""
     dtype = source.xyz.dtype
-    dev = source.xyz.device
     B = source.xyz.shape[0]
     T0 = guess.to(dtype)
 
@@ -283,76 +266,15 @@ def register_fast(
             dim=-1,
         )
 
-    def solve(A, rhs):
-        # solve_ex: a singular system (a problem without correspondences)
-        # yields inf/nan like the reference's LU solve instead of raising
-        return torch.linalg.solve_ex(A, rhs[..., None])[0][..., 0]
-
-    eye6 = torch.eye(6, dtype=dtype, device=dev)
-    eye4 = torch.eye(4, dtype=dtype, device=dev).expand(B, 4, 4)
-    T = T0.clone()
-    lam = torch.full((B,), -1.0, dtype=dtype, device=dev)
-    converged = torch.zeros(B, dtype=torch.bool, device=dev)
-    failed = torch.zeros(B, dtype=torch.bool, device=dev)
-    it = torch.zeros(B, dtype=torch.int32, device=dev)
-    Hf = eye6.expand(B, 6, 6).clone()
-    errf = torch.full((B,), math.inf, dtype=dtype, device=dev)
-
-    for _ in range(cfg.max_iterations):
-        active = ~converged & ~failed & (it < cfg.max_iterations)
-        if not bool(active.any()):
-            break
+    def linearize_at(T):
         w, m, g, best, p = correspondences(T)
         H, b, y0 = linearize(p, m, g)
-        if cfg.optimizer == "GN":
-            # step_gn (lsq_registration_impl.hpp:107-123): one undamped solve
-            delta = _se3_step(solve(H, -b))
-            T = _where(active, delta @ T, T)
-            converged = torch.where(active, _is_converged(delta, cfg), converged)
-            it = it + active.to(torch.int32)
-            Hf = _where(active, H, Hf)
-            errf = torch.where(active, y0, errf)
-            continue
+        return H, b, y0, (m, g)
 
-        diag_max = torch.amax(torch.abs(torch.diagonal(H, dim1=-2, dim2=-1)), dim=-1)
-        lam_i = torch.where(lam < 0, cfg.lm_init_lambda_factor * diag_max, lam)
-        T_i = T
-        nu = torch.full((B,), 2.0, dtype=dtype, device=dev)
-        done = ~active
-        success = torch.zeros_like(done)
-        conv_i = torch.zeros_like(done)
-        dlast = eye4
-        for _ in range(cfg.lm_max_iterations):
-            run = ~done
-            if not bool(run.any()):
-                break
-            d = solve(H + lam_i[:, None, None] * eye6, -b)
-            delta = _se3_step(d)
-            T_new = delta @ T
-            yi = compute_error(T_new, m, g)
-            denom = torch.sum(d * (lam_i[:, None] * d - b), dim=-1)
-            rho = (y0 - yi) / torch.where(torch.abs(denom) < 1e-30, 1e-30, denom)
-            accept = rho >= 0.0
-            conv_rej = _is_converged(delta, cfg)
-            grow = torch.clamp_min(1 - (2 * rho - 1) ** 3, 1 / 3)
-            T_i = _where(run & accept, T_new, T_i)
-            lam_i = torch.where(run, torch.where(accept, lam_i * grow, nu * lam_i), lam_i)
-            nu = torch.where(run & ~accept, 2 * nu, nu)
-            done = torch.where(run, accept | conv_rej, done)
-            success = torch.where(run, accept, success)
-            conv_i = torch.where(run, conv_rej & ~accept, conv_i)
-            dlast = _where(run & accept, delta, dlast)
+    def error_at(T, ctx):
+        return compute_error(T, *ctx)
 
-        T = _where(active, T_i, T)
-        lam = torch.where(active, lam_i, lam)
-        converged = torch.where(
-            active, torch.where(success, _is_converged(dlast, cfg), conv_i), converged
-        )
-        failed = torch.where(active, ~success & ~conv_i, failed)
-        it = it + active.to(torch.int32)
-        Hf = _where(active & success, H, Hf)
-        errf = torch.where(active & success, y0, errf)
-
+    T, Hf, converged, it = solve_lm(T0, cfg, linearize_at, error_at)
     w, m, g, best, p = correspondences(T)
     ncorr = torch.sum(w, dim=-1)
     fitness = torch.sum(torch.where(w > 0, best, 0.0), dim=-1) / torch.clamp_min(ncorr, 1)

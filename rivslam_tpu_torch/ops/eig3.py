@@ -126,3 +126,12 @@ def smallest_eigenvector_sym3(A: torch.Tensor) -> torch.Tensor:
     fallback = torch.tensor([0.0, 0.0, 1.0], dtype=A.dtype, device=A.device).expand(v.shape)
     v = torch.where((nbest > 1e-20)[..., None], v, fallback)
     return v / torch.linalg.norm(v, dim=-1, keepdim=True).clamp_min(1e-20)
+
+
+def plane_regularize(cov: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
+    """PLANE regularization of symmetric [..., 3, 3] without eigh (the exact
+    registration's form): U diag(1, 1, eps) U^T = I - (1 - eps) v v^T with v
+    the smallest eigenvector."""
+    v = smallest_eigenvector_sym3(cov)
+    eye = torch.eye(3, dtype=cov.dtype, device=cov.device)
+    return eye - (1.0 - eps) * v[..., :, None] * v[..., None, :]

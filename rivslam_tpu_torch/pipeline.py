@@ -1,22 +1,35 @@
-"""The per-frame SLAM engine (port of the per-frame part of
-``rivslam_tpu/pipeline.py``): preprocess -> REVE -> odometry -> floor ->
-window backend, one radar frame at a time.
+"""The SLAM engine (port of ``rivslam_tpu/pipeline.py``): preprocess -> REVE
+-> odometry -> floor -> window backend per radar frame, and on keyframes the
+global keyframe graph with loop closure.
 
     eng = Engine(presets.get("cp"), device="cuda")
     outputs = datasets.replay(eng, seq)   # or eng.process_frame(...) per scan
-    ts, poses = eng.trajectory()
+    ts, poses = eng.trajectory()          # loop-corrected (corrected=True)
 
 Per frame (``_frame_step``): NaN/power filters, REVE ego velocity, dynamic
 object removal, deskew, distance filter, voxel downsample, outlier removal,
 floor detection with its fallback chain and under-floor removal, covariance
-prepare, ``odometry.step`` (K1 inside the registration when
-``use_pallas_correspondence`` is on) and ``slam.backend_step`` (K3 inside
-the edge-information fitness). On the card every stage runs on the device;
-the host reads a few flags per frame. The stages carry
-``torch.profiler.record_function`` scopes (``engine.preprocess``,
-``engine.odometry``, ``engine.backend``; ``backend.*`` inside it), which
-cost nothing without a profiler and give ``profile_torch.py --engine`` its
-per-stage host times.
+prepare, ``odometry.step`` (K1 inside the fast registration when
+``use_pallas_correspondence`` is on, K2 inside the exact one) and
+``slam.backend_step`` (K3 inside the edge-information fitness). On the card
+every stage runs on the device; the host reads a few flags per frame.
+
+Per keyframe (``_on_keyframe``, synchronous): the keyframe joins the global
+graph with its odometry edge (its information from a K3 fitness pass),
+GPS and barometer priors, and the scan-context database; with
+``loop.enable``, loop detection runs inline: candidate prefilter,
+scan-context match, registration verification (the engine's own
+registration: K1 or K2), odometry and pairwise checks, and on acceptance the
+loop edge and a global solve (block-Schur by default). A full graph is
+compacted. ``trajectory(corrected=True)`` spreads the graph's correction
+over every frame.
+
+The stages carry ``torch.profiler.record_function`` scopes
+(``engine.preprocess``, ``engine.odometry``, ``engine.backend``, with
+``backend.*`` inside; ``engine.keyframe``, ``engine.loop_detection``,
+``engine.global_solve``), which cost nothing without a profiler and give
+``profile_torch.py --engine`` its per-stage host times; ``timers`` keeps the
+reference's per-stage wall times.
 
 Randomness. REVE and the floor detector pick their RANSAC hypotheses from
 uniform scores (``frontend/reve.py``). The reference draws them from one
@@ -28,12 +41,9 @@ same hypotheses. The one seam for the draw is the ``uniforms`` argument:
 REVE's [ransac_iter, N] and then the floor's [ransac_iterations, N] scores
 (the parity tests feed the JAX engine's own draws through it).
 
-Not in this slice (ROADMAP.md, queue 1 item 8): the keyframe hook that
-feeds the global graph (graph insertion, scan context, loop closure, GPS
-and barometer priors). Without a loop or GPS edge it changes no per-frame
-output and no trajectory pose, so the Engine keeps only the host-side
-keyframe lists, and raises NotImplementedError for a configuration or a
-frame that would need the graph. Scan-to-map odometry (item 5) raises too.
+Not ported yet: the asynchronous loop worker (``loop.async_loop``, with
+``drain_loops`` and ``close``; ROADMAP.md queue 1 item 1) and scan-to-map
+odometry (item 2) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -45,13 +55,72 @@ import torch
 from torch.profiler import record_function
 
 from rivslam_tpu_torch.backend import slam
+from rivslam_tpu_torch.core import lie
 from rivslam_tpu_torch.core.config import EngineConfig
 from rivslam_tpu_torch.core.device import resolve
 from rivslam_tpu_torch.core.pointcloud import RadarCloud
+from rivslam_tpu_torch.eval.timing import StageTimers
+from rivslam_tpu_torch.factors import infomat
 from rivslam_tpu_torch.frontend import apdgicp, floor, odometry, reve
+from rivslam_tpu_torch.loop import block_schur, detector, global_graph, scancontext
 from rivslam_tpu_torch.ops import deskew, filters, voxel
 
-_GRAPH = "needs the keyframe graph, not ported yet: see ROADMAP.md, queue 1 item 8"
+
+def _se3_log_np(T: np.ndarray) -> np.ndarray:
+    """Host-side SE(3) log, [omega, rho] (float64 numpy, for the trajectory
+    correction)."""
+    R = T[:3, :3]
+    cos = np.clip((np.trace(R) - 1.0) * 0.5, -1.0, 1.0)
+    th = np.arccos(cos)
+    vee = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    if th < 1e-9:
+        w = 0.5 * vee
+    elif th > np.pi - 1e-4:
+        # sin(th) -> 0 kills the vee form; recover the axis from the
+        # symmetric part: R + R^T - (tr R - 1) I = 2 (1 - cos th) a a^T
+        S = R + R.T - (np.trace(R) - 1.0) * np.eye(3)
+        col = S[:, int(np.argmax(np.diag(S)))]
+        a = col / np.linalg.norm(col)
+        if a @ vee < 0.0:
+            a = -a
+        w = th * a
+    else:
+        w = th / (2.0 * np.sin(th)) * vee
+    W = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+    t2 = w @ w
+    if t2 < 1e-18:
+        Vinv = np.eye(3) - 0.5 * W
+    else:
+        t = np.sqrt(t2)
+        Vinv = np.eye(3) - 0.5 * W + (1.0 - t * np.cos(t * 0.5) / (2.0 * np.sin(t * 0.5))) / t2 * (W @ W)
+    return np.concatenate([w, Vinv @ T[:3, 3]])
+
+
+def _se3_exp_np(xi: np.ndarray) -> np.ndarray:
+    w, rho = xi[:3], xi[3:]
+    W = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+    t2 = w @ w
+    T = np.eye(4)
+    if t2 < 1e-18:
+        R = np.eye(3) + W
+        V = np.eye(3) + 0.5 * W
+    else:
+        t = np.sqrt(t2)
+        R = np.eye(3) + np.sin(t) / t * W + (1 - np.cos(t)) / t2 * (W @ W)
+        V = np.eye(3) + (1 - np.cos(t)) / t2 * W + (t - np.sin(t)) / (t2 * t) * (W @ W)
+    T[:3, :3] = R
+    T[:3, 3] = V @ rho
+    return T
+
+
+def _with_rows(g, k: int, **rows):
+    """A copy of dataclass ``g`` whose named tensor fields have row k set."""
+    upd = {}
+    for name, value in rows.items():
+        t = getattr(g, name).clone()
+        t[k] = value
+        upd[name] = t
+    return dataclasses.replace(g, **upd)
 
 
 @dataclasses.dataclass
@@ -60,13 +129,21 @@ class EngineState:
 
     odo: odometry.OdometryState | None = None
     backend: slam.BackendState | None = None
+    scdb: scancontext.ScanContextDB | None = None
+    graph: global_graph.PoseGraph | None = None
     frame_idx: int = 0
-    kf_count: int = 0
+    kf_count: int = 0  # keyframes in the global graph
+    last_loop_accum: float = 0.0
+    prev_loop: dict | None = None
     floor_prev: torch.Tensor | None = None  # [4] fallback plane chain
-    # host-side keyframe lists, kept for the keyframe-graph slice
+    kf_clouds: list = dataclasses.field(default_factory=list)  # per-kf (xyz, mask)
     kf_stamps: list = dataclasses.field(default_factory=list)
     kf_accum: list = dataclasses.field(default_factory=list)
-    kf_odom: list = dataclasses.field(default_factory=list)  # raw odometry 4x4
+    kf_alt: list = dataclasses.field(default_factory=list)  # barometer altitude (nan if absent)
+    kf_odom: list = dataclasses.field(default_factory=list)  # raw odometry 4x4 (device)
+    zero_utm: np.ndarray | None = None  # UTM origin = first accepted GPS fix
+    baro_zero: float | None = None  # altitude origin = first keyframe reading
+    gps_kf_since_solve: int = 0  # GPS-tagged keyframes since the last solve
     trajectory: list = dataclasses.field(default_factory=list)  # (t, pose 4x4)
 
 
@@ -76,11 +153,15 @@ class Engine:
 
     def __init__(self, cfg: EngineConfig = EngineConfig(), dtype=torch.float32, seed: int = 0,
                  device="cuda", uniforms=None):
-        if cfg.loop.enable or cfg.loop.baro_z_prior:
-            raise NotImplementedError(f"loop closure / barometer priors {_GRAPH}")
+        if cfg.loop.async_loop:
+            raise NotImplementedError(
+                "the asynchronous loop worker (loop.async_loop) is not ported yet: see "
+                "ROADMAP.md, queue 1, item 1 (async loop worker)"
+            )
         if cfg.odometry.enable_scan_to_map:
             raise NotImplementedError(
-                "scan-to-map odometry is not ported yet: see ROADMAP.md, queue 1 item 5"
+                "scan-to-map odometry is not ported yet: see ROADMAP.md, queue 1, item 2 "
+                "(scan-to-map odometry)"
             )
         self.cfg = cfg
         self.dtype = dtype
@@ -88,6 +169,21 @@ class Engine:
         self._generator = torch.Generator().manual_seed(seed)
         self._uniforms_fn = uniforms
         self.state = EngineState()
+        self.timers = StageTimers()
+        # loop-pipeline outcome counts, as the reference's
+        self.loop_stats = {
+            "detections_run": 0,        # keyframes that entered detection
+            "skipped_worker_busy": 0,   # async worker overrun (no worker here: 0)
+            "no_candidate": 0,          # prefilter/SC retrieval empty
+            "rejected_verify": 0,       # registration fitness gate
+            "rejected_odom_check": 0,   # LAMP odometry check
+            "rejected_pairwise": 0,     # pairwise consistency vs the previous loop
+            "pairwise_checked": 0,      # checks run WITH a real previous loop
+            "accepted": 0,              # loop edges committed to the graph
+            "dropped_capacity": 0,      # accepted but loop slots exhausted
+            "sc_dropped_capacity": 0,   # descriptor DB full at insert (stays 0:
+                                        # compaction runs first)
+        }
 
     def _uniforms(self, shape: tuple[int, int]) -> torch.Tensor:
         """RANSAC scores for this frame: the caller's ``uniforms`` seam, or
@@ -169,18 +265,17 @@ class Engine:
         )
         with record_function("engine.backend"):
             st.backend, bout = slam.backend_step(st.backend, frame, c.backend, c.imu)
-        return ego, fl, dynamic_mask, oout, odom_pose, bout
+        return cl, ego, fl, dynamic_mask, oout, odom_pose, bout
 
     def process_frame(self, cloud: RadarCloud, stamp: float, imu_dts, imu_acc, imu_gyr,
                       imu_mask, altitude=None, gps_utm=None, gps_cov=None) -> dict:
-        """Feed one radar frame (+ the IMU batch since the last). Returns the
-        reference's output dict; ``loop_found`` is always False here.
-        ``altitude`` feeds only the keyframe graph and is unused; a GPS fix
-        raises NotImplementedError (it needs the graph)."""
+        """Feed one radar frame (+ the IMU batch since the last). ``altitude``
+        is the barometer reading (the loop prefilter's gate, and the optional
+        z prior); ``gps_utm`` an optional UTM fix [easting, northing, alt]
+        paired to this frame, a translation prior on its keyframe. Returns
+        the reference's output dict."""
         c = self.cfg
         st = self.state
-        if gps_utm is not None and c.gps.enable:
-            raise NotImplementedError(f"GPS priors {_GRAPH}")
         imu_acc, imu_gyr, imu_mask = np.asarray(imu_acc), np.asarray(imu_gyr), np.asarray(imu_mask)
         if c.imu.apply_extrinsics:
             # imuConverter parity (utility_radar.h:206-236)
@@ -195,32 +290,32 @@ class Engine:
         def t(a, dtype=self.dtype):
             return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
 
-        ego, fl, dynamic_mask, oout, odom_pose, bout = self._frame_step(
-            cloud, t(ang_vel), t(stamp), t(imu_dts), t(imu_acc), t(imu_gyr), t(imu_mask, torch.bool),
-        )
+        with self.timers.time("frame_step"):
+            cl, ego, fl, dynamic_mask, oout, odom_pose, bout = self._frame_step(
+                cloud, t(ang_vel), t(stamp), t(imu_dts), t(imu_acc), t(imu_gyr),
+                t(imu_mask, torch.bool),
+            )
         if oout is None:
             is_kf, reg_ok, status = True, True, None
         else:
             is_kf = bool(oout.is_keyframe)
             reg_ok = bool(oout.reg.converged)
             status = self._scan_matching_status(oout)
-        odom = odom_pose.cpu().numpy()
+        loop_found = False
         if is_kf:
-            st.kf_odom.append(odom)
-            st.kf_stamps.append(stamp)
-            st.kf_accum.append(float(st.odo.accum_distance))
-            st.kf_count += 1
+            with self.timers.time("loop"):
+                loop_found = self._on_keyframe(cl, odom_pose, stamp, altitude, gps_utm, gps_cov)
         st.frame_idx += 1
         pose = bout.pose.cpu().numpy()
         st.trajectory.append((stamp, pose))
         return {
-            "odom": odom,
+            "odom": odom_pose.cpu().numpy(),
             "pose": pose,
             "is_keyframe": is_kf,
             "ego_velocity": ego.v.cpu().numpy(),
             "floor": fl.coeffs.cpu().numpy() if bool(fl.found) else None,
             "chi2": float(bout.chi2),
-            "loop_found": False,
+            "loop_found": loop_found,
             "registration_ok": reg_ok,
             "dynamic_points": cloud.xyz.cpu().numpy()[dynamic_mask.cpu().numpy()],
             # ScanMatchingStatus parity (msg/ScanMatchingStatus.msg)
@@ -240,14 +335,302 @@ class Engine:
             "prediction_errors": [oout.pred_error.cpu().numpy()],
         }
 
-    def finalize(self) -> None:
-        """No-op: the reference re-optimizes its global graph here, which
-        this slice does not build."""
+    # ---- the keyframe graph ----------------------------------------------
+    def _edge_info(self, xyz1, mask1, xyz2, mask2, relpose) -> torch.Tensor:
+        """Fitness-based 6x6 information of a graph edge (K3 inside)."""
+        return infomat.calc_information_matrix(
+            xyz1, mask1, xyz2, mask2, relpose, self.cfg.backend, scaled=False
+        )
 
-    def trajectory(self) -> tuple[np.ndarray, np.ndarray]:
-        """Per-frame trajectory (stamps [F], window-backend poses [F,4,4]).
-        Without loop or GPS edges the reference returns these unchanged."""
+    def _solve_graph(self, g: global_graph.PoseGraph) -> global_graph.PoseGraph:
+        with record_function("engine.global_solve"), self.timers.time("graph_opt"):
+            if self.cfg.loop.global_solver == "SCHUR":
+                g, _ = block_schur.solve_pose_graph_schur(g, num_blocks=self.cfg.loop.schur_blocks)
+            else:
+                g, _ = global_graph.solve_pose_graph(g)
+        return g
+
+    def _has_priors_or_loops(self) -> bool:
+        g = self.state.graph
+        return g is not None and bool(g.loop_mask.any() | g.gps_mask.any())
+
+    def _on_keyframe(self, cl: RadarCloud, odom_pose, stamp: float, altitude=None,
+                     gps_utm=None, gps_cov=None) -> bool:
+        """Keyframe hook: graph insertion, then (with loop.enable) loop
+        detection inline, as the reference's synchronous branch."""
+        c = self.cfg
+        with record_function("engine.keyframe"):
+            k = self._insert_keyframe(cl, odom_pose, stamp, altitude, gps_utm, gps_cov)
+        if k is None or not c.loop.enable or self.state.kf_count < c.loop.num_exclude_recent + 2:
+            return False
+        with record_function("engine.loop_detection"):
+            det = self._run_loop_detection(cl, k, odom_pose)
+        return det is not None and self._accept_loop(det)
+
+    def _insert_keyframe(self, cl: RadarCloud, odom_pose, stamp: float, altitude=None,
+                         gps_utm=None, gps_cov=None):
+        """Global-graph node + odometry edge, scan-context insert, host-side
+        lists, GPS/UTM or barometer prior. Returns the node index, or None
+        when the graph is full and cannot compact."""
+        c = self.cfg
+        st = self.state
+        dt, dev = self.dtype, self.device
+        if st.scdb is None:
+            st.scdb = scancontext.ScanContextDB.create(c.loop, dtype=dt, device=dev)
+            st.graph = global_graph.PoseGraph.create(
+                c.loop.keyframe_capacity, c.loop.loop_capacity, dtype=dt, device=dev
+            )
+        k = st.kf_count
+        if k >= c.loop.keyframe_capacity:
+            if c.loop.compact_on_full:
+                self._compact_keyframes()
+                k = st.kf_count
+            if k >= c.loop.keyframe_capacity:
+                return None
+
+        # the edge measurement is the RAW odometry delta; the node's initial
+        # estimate chains it onto the (possibly loop-corrected) previous node
+        g = st.graph
+        if k == 0:
+            rel = torch.eye(4, dtype=dt, device=dev)
+            est_T = odom_pose
+            edge_info = torch.eye(6, dtype=dt, device=dev)
+        else:
+            rel = lie.se3_inverse(st.kf_odom[-1]) @ odom_pose
+            est_T = lie.se3_matrix(g.R[k - 1], g.p[k - 1]) @ rel
+            # fitness-based information, as the reference's odometry edges
+            # (flush_keyframe_queue -> calc_information_matrix)
+            prev_xyz, prev_mask = st.kf_clouds[-1]
+            edge_info = self._edge_info(cl.xyz, cl.mask, prev_xyz, prev_mask, lie.se3_inverse(rel))
+        st.kf_odom.append(odom_pose)
+        st.graph = _with_rows(
+            g, k, R=est_T[:3, :3], p=est_T[:3, 3], node_mask=True, odom_rel_R=rel[:3, :3],
+            odom_rel_p=rel[:3, 3], odom_info=edge_info,
+        )
+        st.scdb, dropped = scancontext.insert(
+            st.scdb, scancontext.make_descriptor(cl.xyz, cl.intensity, cl.mask, c.loop)
+        )
+        if dropped:
+            self.loop_stats["sc_dropped_capacity"] += 1
+        st.kf_clouds.append((cl.xyz, cl.mask))
+        st.kf_stamps.append(stamp)
+        st.kf_accum.append(float(st.odo.accum_distance))
+        st.kf_alt.append(float("nan") if altitude is None else float(altitude))
+        st.kf_count += 1
+
+        # GPS/UTM translation prior (EdgeSE3PriorXYZ; keyframe.hpp:52); the
+        # first accepted fix anchors the UTM origin (nodelet:1453 zero_utm)
+        if c.gps.enable and gps_utm is not None:
+            utm = np.asarray(gps_utm, np.float64).reshape(3)
+            if st.zero_utm is None:
+                st.zero_utm = utm.copy()
+            if (c.gps.use_fix_covariance and gps_cov is not None
+                    and bool(np.all(np.isfinite(np.asarray(gps_cov, np.float64))))):
+                info3 = 1.0 / np.maximum(np.asarray(gps_cov, np.float64), 1e-6)
+            else:
+                info3 = 1.0 / np.asarray([c.gps.stddev_xy**2, c.gps.stddev_xy**2, c.gps.stddev_z**2])
+            self._set_prior(k, utm - st.zero_utm, info3)
+            st.gps_kf_since_solve += 1
+            if c.gps.solve_interval > 0 and st.gps_kf_since_solve >= c.gps.solve_interval:
+                st.graph = self._solve_graph(st.graph)
+                st.gps_kf_since_solve = 0
+        elif c.loop.baro_z_prior and altitude is not None and np.isfinite(altitude):
+            # barometer altitude prior (EdgeSE3PriorZ): a z-only row of the
+            # diagonal translation prior, relative to the first reading
+            if st.baro_zero is None:
+                st.baro_zero = float(altitude)
+            z_rel = float(altitude) - st.baro_zero
+            self._set_prior(k, [0.0, 0.0, z_rel], [0.0, 0.0, 1.0 / c.loop.baro_z_stddev**2])
+        return k
+
+    def _set_prior(self, k: int, xyz, info3) -> None:
+        def t(a):
+            return torch.as_tensor(np.asarray(a, np.float64), dtype=self.dtype, device=self.device)
+
+        st = self.state
+        st.graph = _with_rows(st.graph, k, gps_xyz=t(xyz), gps_info=t(info3), gps_mask=True)
+
+    def _compact_keyframes(self) -> None:
+        """Halve the graph when keyframe capacity fills: keep the anchor,
+        every loop endpoint, the recent tail and every other node; compose
+        the odometry edges across dropped nodes (global_graph.compact)."""
+        st = self.state
+        c = self.cfg
+        n = st.kf_count
+        if n < 4 or st.graph is None:
+            return
+        keep = set(range(0, n, 2)) | {0, n - 1}
+        tail = min(c.loop.num_exclude_recent, max(1, n // 4))
+        keep.update(range(max(0, n - tail), n))
+        lmask = st.graph.loop_mask.cpu().numpy()
+        li, lj = st.graph.loop_i.cpu().numpy(), st.graph.loop_j.cpu().numpy()
+        for e in np.flatnonzero(lmask):
+            keep.update((int(li[e]), int(lj[e])))
+        keep = sorted(i for i in keep if i < n)
+        if len(keep) >= n:
+            return
+        st.graph, _ = global_graph.compact(st.graph, keep, n)
+        st.scdb = scancontext.compact(st.scdb, keep)
+        for name in ("kf_clouds", "kf_stamps", "kf_accum", "kf_alt", "kf_odom"):
+            setattr(st, name, [getattr(st, name)[i] for i in keep])
+        st.kf_count = len(keep)
+        # the pairwise-consistency memory holds old indices
+        st.prev_loop = None
+
+    # ---- loop detection ----------------------------------------------------
+    def _run_loop_detection(self, cl: RadarCloud, k: int, odom_pose):
+        """Scan-context match + registration verify + consistency gates for
+        keyframe k. Returns the accepted-loop record, or None."""
+        c = self.cfg
+        st = self.state
+        K = c.loop.keyframe_capacity
+        n = st.kf_count
+        stats = self.loop_stats
+        stats["detections_run"] += 1
+
+        def padded(values, fill=0.0):
+            a = np.full(K, fill, np.float64)
+            a[:n] = values
+            return torch.as_tensor(a, dtype=self.dtype, device=self.device)
+
+        alt = np.asarray(st.kf_alt, np.float64)
+        alt_valid = np.zeros(K, bool)
+        alt_valid[:n] = ~np.isnan(alt)
+        g = st.graph
+        cand = detector.prefilter_candidates(
+            padded(st.kf_accum), g.R, g.p, g.node_mask, k, st.last_loop_accum, c.loop,
+            altitude=padded(np.nan_to_num(alt)),
+            altitude_valid=torch.as_tensor(alt_valid, device=self.device),
+        )
+        desc = scancontext.make_descriptor(cl.xyz, cl.intensity, cl.mask, c.loop)
+        if c.loop.verify_candidates > 1:
+            # verify the top-k scan-context candidates as one batch, keep the
+            # best-fitness pass
+            idxs, yaws, _, valid = scancontext.match_topk(
+                st.scdb, desc, k, cand, c.loop, c.loop.verify_candidates
+            )
+            idxs_h = idxs.cpu().numpy()
+            if not (idxs_h >= 0).any():
+                stats["no_candidate"] += 1
+                return None
+            gather = [max(int(i), 0) for i in idxs_h]
+            res, oks, best = detector.verify_loops_batch(
+                cl.xyz, cl.mask, torch.stack([st.kf_clouds[i][0] for i in gather]),
+                torch.stack([st.kf_clouds[i][1] for i in gather]), yaws, valid,
+                c.registration, c.loop,
+            )
+            if not bool(oks.any()):
+                stats["rejected_verify"] += 1
+                return None
+            b = int(best)
+            idx = int(idxs_h[b])
+            T_lc = res.T[b]
+        else:
+            idx_t, yaw, _ = scancontext.match(st.scdb, desc, k, cand, c.loop)
+            idx = int(idx_t)
+            if idx < 0:
+                stats["no_candidate"] += 1
+                return None
+            cand_xyz, cand_mask = st.kf_clouds[idx]
+            res, ok = detector.verify_loop(
+                cl.xyz, cl.mask, cand_xyz, cand_mask, c.registration, c.loop, yaw_guess=yaw
+            )
+            if not bool(ok):
+                stats["rejected_verify"] += 1
+                return None
+            T_lc = res.T
+        # odometry check: T_lc maps the new cloud into the candidate's frame;
+        # both poses are RAW odometry (loop_detector.cpp:252,278-283)
+        odom_i, odom_j = st.kf_odom[idx], odom_pose
+        T_jl = lie.se3_inverse(T_lc)
+        if not bool(detector.odometry_check(T_jl, odom_i, odom_j, k - idx, c.loop)):
+            stats["rejected_odom_check"] += 1
+            return None
+        if st.prev_loop is not None:
+            stats["pairwise_checked"] += 1
+            prev = st.prev_loop
+            if not bool(detector.pairwise_check(
+                T_jl, odom_i, odom_j, prev["odom_i"], prev["odom_j"], prev["T_lc"], True, c.loop
+            )):
+                stats["rejected_pairwise"] += 1
+                return None
+        # information from the registration fitness between the matched
+        # clouds (loop_detector.cpp:314); measurement T_i^-1 T_j = T_lc
+        cand_xyz, cand_mask = st.kf_clouds[idx]
+        loop_info = self._edge_info(cl.xyz, cl.mask, cand_xyz, cand_mask, T_jl)
+        return {"k": k, "idx": idx, "T_lc": T_lc, "loop_info": loop_info,
+                "odom_i": odom_i, "odom_j": odom_j, "accum": float(st.kf_accum[k])}
+
+    def _add_loop_edge(self, g: global_graph.PoseGraph, det: dict):
+        """g with det's loop edge in the next free slot; None when full."""
+        ln = int(g.loop_mask.sum())
+        if ln >= g.loop_i.shape[0]:
+            return None
+        T_lc = det["T_lc"]
+        return _with_rows(
+            g, ln, loop_i=det["idx"], loop_j=det["k"], loop_rel_R=T_lc[:3, :3],
+            loop_rel_p=T_lc[:3, 3], loop_info=det["loop_info"], loop_mask=True,
+        )
+
+    def _accept_loop(self, det: dict) -> bool:
+        """Commit an accepted loop: add the edge, update the gating memory,
+        re-optimize the global graph."""
+        st = self.state
+        g2 = self._add_loop_edge(st.graph, det)
+        if g2 is None:
+            self.loop_stats["dropped_capacity"] += 1
+            return False
+        self.loop_stats["accepted"] += 1
+        st.last_loop_accum = det["accum"]
+        st.prev_loop = {"odom_i": det["odom_i"], "odom_j": det["odom_j"], "T_lc": det["T_lc"]}
+        st.graph = self._solve_graph(g2)
+        st.gps_kf_since_solve = 0
+        return True
+
+    # ------------------------------------------------------------------------
+    def finalize(self) -> None:
+        """Re-optimize the global graph over the final keyframe set; a no-op
+        when it has no loop edge and no GPS/barometer prior."""
+        if self._has_priors_or_loops():
+            self.state.graph = self._solve_graph(self.state.graph)
+
+    def optimized_keyframe_poses(self) -> np.ndarray:
+        """[K_used, 4, 4] globally optimized keyframe poses."""
+        st = self.state
+        if st.graph is None or st.kf_count == 0:
+            return np.zeros((0, 4, 4))
+        out = np.tile(np.eye(4), (st.kf_count, 1, 1))
+        out[:, :3, :3] = st.graph.R[: st.kf_count].cpu().numpy()
+        out[:, :3, 3] = st.graph.p[: st.kf_count].cpu().numpy()
+        return out
+
+    def trajectory(self, corrected: bool = True) -> tuple[np.ndarray, np.ndarray]:
+        """Per-frame trajectory (stamps [F], poses [F,4,4]). With
+        ``corrected=True`` (the default) the graph's correction reaches
+        every frame: the odom->map delta is interpolated between the
+        bracketing keyframes (the reference's trans_odom2map role, extended
+        to a per-frame retarget). Without loop edges or priors, or with
+        ``corrected=False``, the window backend's poses come back as they
+        are."""
         st = self.state
         ts = np.asarray([s for s, _ in st.trajectory])
         poses = np.stack([T for _, T in st.trajectory]) if ts.size else np.zeros((0, 4, 4))
-        return ts, poses
+        if not corrected or st.kf_count == 0 or not self._has_priors_or_loops():
+            return ts, poses
+        G = self.optimized_keyframe_poses()  # [K,4,4] map frame
+        O = np.stack([T.cpu().numpy().astype(np.float64) for T in st.kf_odom])  # odom frame
+        C = np.einsum("kij,kjl->kil", G, np.linalg.inv(O))  # per-keyframe odom->map
+        kf_ts = np.asarray(st.kf_stamps, np.float64)
+        out = np.empty_like(poses)
+        seg = np.clip(np.searchsorted(kf_ts, ts, side="right") - 1, 0, len(kf_ts) - 1)
+        xis = [_se3_log_np(np.linalg.inv(C[k]) @ C[k + 1]) for k in range(len(kf_ts) - 1)]
+        for f in range(len(ts)):
+            k = int(seg[f])
+            if k >= len(kf_ts) - 1:
+                corr = C[-1]
+            else:
+                span = kf_ts[k + 1] - kf_ts[k]
+                s = 0.0 if span <= 0 else float(np.clip((ts[f] - kf_ts[k]) / span, 0.0, 1.0))
+                corr = C[k] @ _se3_exp_np(s * xis[k])
+            out[f] = corr @ poses[f]
+        return ts, out

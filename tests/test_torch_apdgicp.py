@@ -205,11 +205,18 @@ def test_alignment_acceptance(omni_scene, direction, flag):
     ids=["ICP", "VGICP", "exact"],
 )
 def test_unported_paths_raise(cfg):
-    xyz, mask = torch.zeros(8, 3), torch.ones(8, dtype=torch.bool)
-    if not cfg.use_fast_path:
+    """VGICP/NDT are still to port and raise, naming their ROADMAP item.
+    ICP and the exact path (use_fast_path=False) are ported now: they run
+    the exact covariances and registration (tests/test_torch_exact.py holds
+    them against the reference)."""
+    rng = np.random.default_rng(3)
+    xyz = torch.as_tensor(rng.normal(size=(64, 3)) * 5, dtype=torch.float32)
+    mask = torch.ones(64, dtype=torch.bool)
+    prepared = apdgicp.prepare(xyz, mask, cfg, device=CPU)
+    if cfg.method == "VGICP":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            apdgicp.prepare(xyz, mask, cfg, device=CPU)
+            apdgicp.register_dispatch(prepared, prepared, torch.eye(4), cfg, device=CPU)
         return
-    prepared = apdgicp.PreparedCloud(xyz=xyz, mask=mask, cov=torch.eye(3).expand(8, 3, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        apdgicp.register_dispatch(prepared, prepared, torch.eye(4), cfg, device=CPU)
+    res = apdgicp.register_dispatch(prepared, prepared, torch.eye(4), cfg, device=CPU)
+    assert bool(res.converged) and int(res.num_correspondences) == 64
+    np.testing.assert_allclose(res.T.numpy(), np.eye(4), atol=1e-4)

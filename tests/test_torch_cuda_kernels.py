@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1, K3) on the card, against their plain twins,
-and the paths that launch them.
+"""The port's CUDA kernels (K1, K2, K3) on the card, against their plain
+twins, and the paths that launch them.
 
 Needs an NVIDIA GPU with nvcc; everywhere else every test skips. Run on the
 card, without the JAX test harness:
@@ -20,7 +20,7 @@ from rivslam_tpu_torch.frontend import apdgicp
 from rivslam_tpu_torch.io import synthetic
 from rivslam_tpu_torch import pipeline, presets
 from rivslam_tpu_torch.io import datasets
-from rivslam_tpu_torch.ops import nn_argmin, nn_gather
+from rivslam_tpu_torch.ops import nn_argmin, nn_corr, nn_gather
 
 pytestmark = pytest.mark.cuda
 
@@ -34,6 +34,7 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
     nn_gather.build()
+    nn_corr.build()
     nn_argmin.build()
     return torch.device("cuda")
 
@@ -178,7 +179,9 @@ def test_k3_counts_launches_and_rejects_what_it_cannot_take(dev):
 
 def test_engine_runs_through_k1_and_k3(dev):
     """A few frames of the cp course at full width: K3 once per frame (the
-    backend's fitness), K1 in every registration LM step, finite poses."""
+    backend's fitness) and once per keyframe after the first (the keyframe
+    graph's odometry-edge information), K1 in every registration LM step,
+    finite poses."""
     seq, _ = synthetic.simulate_sequence(seed=21, radius=8.0, omega=0.25, dt=0.25, n_frames=4,
                                          capacity=1024, world_points=20000, extent=30.0)
     cfg = presets.get("cp")
@@ -188,6 +191,99 @@ def test_engine_runs_through_k1_and_k3(dev):
     )
     k1, k3 = nn_gather.fused_gather.launches, nn_argmin.nearest_neighbor.launches
     outs = datasets.replay(pipeline.Engine(cfg, device=dev), seq, 1024, 64)
-    assert nn_argmin.nearest_neighbor.launches - k3 == 4
+    n_kf = sum(o["is_keyframe"] for o in outs)
+    assert nn_argmin.nearest_neighbor.launches - k3 == 4 + n_kf - 1
     assert nn_gather.fused_gather.launches - k1 >= 3
     assert all(np.isfinite(o["pose"]).all() for o in outs)
+
+
+# ---- K2 ------------------------------------------------------------------------
+
+
+def _k2_inputs(dev, B, N, M, F=12, seed=0, keep=0.85):
+    q, r, m, _ = _inputs(dev, B, N, M, seed=seed, keep=keep)
+    f = torch.as_tensor(np.random.default_rng(seed + 1).normal(size=(B, M, F)).astype(np.float32), device=dev)
+    return q, r, m, f
+
+
+def _assert_k2_matches_plain(q, r, m, f):
+    """idx and the gathered rows equal, d2 bitwise."""
+    idx, d2, g = nn_corr.fused_correspondence(q, r, m, f)
+    pidx, pd2, pg = nn_corr.fused_correspondence_plain(q, r, m, f)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, pidx) and torch.equal(d2, pd2) and torch.equal(g, pg)
+    return idx, d2, g
+
+
+@pytest.mark.parametrize(
+    "B,N,M,F",
+    [(1, 1024, 1024, 12), (256, 1024, 1024, 12), (3, 1000, 1500, 12), (2, 97, 513, 1),
+     (2, 300, 700, 128), (1, 1, 1, 1)],
+    ids=["engine", "batched", "ragged", "F1", "F128", "single"],
+)
+def test_k2_matches_plain_twin(dev, B, N, M, F):
+    _assert_k2_matches_plain(*_k2_inputs(dev, B, N, M, F))
+
+
+def test_k2_masked_refs(dev):
+    q, r, m, f = _k2_inputs(dev, 3, 300, 700)
+    m[0] = False
+    idx, d2, g = _assert_k2_matches_plain(q, r, m, f)
+    assert torch.all(d2[0] == 1e30) and torch.all(idx[0] == 0) and torch.all(g[0] == 0)
+    assert bool(m[1][idx[1].long()].all())
+
+
+def test_k2_first_index_wins_exact_ties(dev):
+    q, r, m, f = _k2_inputs(dev, 2, 300, 1100, keep=1.1)
+    r[:, 512:768] = r[:, :256]
+    r[:, 300:350] = r[:, :50]
+    q[:, :256] = r[:, :256]
+    idx, _, g = _assert_k2_matches_plain(q, r, m, f)
+    assert torch.equal(idx[:, :256], torch.arange(256, device=dev, dtype=torch.int32).expand(2, 256))
+    assert torch.equal(g[:, :256], f[:, :256])
+
+
+def test_k2_counts_launches_and_rejects_what_it_cannot_take(dev):
+    q, r, m, f = _k2_inputs(dev, 2, 64, 128)
+    before = nn_corr.fused_correspondence.launches
+    nn_corr.fused_correspondence(q, r, m, f)
+    nn_corr.fused_correspondence_plain(q, r, m, f)
+    assert nn_corr.fused_correspondence.launches == before + 1
+    with pytest.raises(ValueError, match="float32"):
+        nn_corr.fused_correspondence(q, r, m, f.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        nn_corr.fused_correspondence(q, r, m, f.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="features"):
+        nn_corr.fused_correspondence(q, r, m, torch.zeros(2, 128, 129, device=dev))
+    assert nn_corr.fused_correspondence.launches == before + 1
+
+
+@pytest.mark.parametrize("method", ["FAST_APDGICP", "GICP", "ICP"])
+def test_exact_path_runs_through_k2_and_matches_the_cpu(dev, method):
+    _, args = rivslam_tpu_torch.entry(device=dev)
+    cfg = RegistrationConfig(method=method, use_fast_path=False)
+    before = nn_corr.fused_correspondence.launches
+    res = apdgicp.prepare_and_register(*args, cfg, device=dev)
+    # one correspondence step per outer iteration, and the final one
+    assert nn_corr.fused_correspondence.launches - before == int(res.iterations) + 1
+    cpu = apdgicp.prepare_and_register(*[a.cpu() for a in args], cfg, device="cpu")
+    assert (res.T.cpu() - cpu.T).abs().max().item() <= 1e-3
+    assert int(res.num_correspondences) == int(cpu.num_correspondences)
+
+
+def test_engine_with_loop_closure_and_exact_path(dev):
+    """A few frames of the cp course at full width with the preset as
+    shipped (loop closure on) and through the exact registration: K2 in
+    every exact registration step, finite poses, the graph filled."""
+    seq, _ = synthetic.simulate_sequence(seed=21, radius=8.0, omega=0.25, dt=0.25, n_frames=4,
+                                         capacity=1024, world_points=20000, extent=30.0)
+    cfg = presets.get("cp")
+    cfg = dataclasses.replace(cfg, registration=dataclasses.replace(cfg.registration, use_fast_path=False))
+    k2 = nn_corr.fused_correspondence.launches
+    eng = pipeline.Engine(cfg, device=dev)
+    outs = datasets.replay(eng, seq, 1024, 64)
+    assert nn_corr.fused_correspondence.launches - k2 >= 3
+    assert all(np.isfinite(o["pose"]).all() for o in outs)
+    assert eng.state.kf_count == sum(o["is_keyframe"] for o in outs)
+    ts, poses = eng.trajectory()
+    assert poses.shape == (4, 4, 4) and np.isfinite(poses).all()

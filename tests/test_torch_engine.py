@@ -3,8 +3,9 @@
 One short synthetic course runs through both Engines with the same seed and
 the JAX engine's own RANSAC draws injected into the port (the ``uniforms``
 seam), in float64 and in float32, frame by frame. Also: the simulator, the
-sequence container, replay and ATE copies, and the parts of the reference
-Engine this slice leaves out (they raise).
+sequence container, replay and ATE copies, the parts of the reference
+Engine the port still leaves out (they raise), and the GPS and barometer
+priors of the keyframe graph.
 
 Run as a script (``PYTHONPATH=. python tests/test_torch_engine.py``), it
 prints the JAX engine's full-trajectory ATE on chip_smoke.py's engine course
@@ -163,16 +164,20 @@ def test_engine_draws_come_from_its_seed():
 
 @pytest.mark.parametrize("what", ["loop", "baro_prior", "scan_to_map", "gps", "cuda"])
 def test_engine_refuses_what_this_slice_leaves_out(monkeypatch, what):
+    """What the port still leaves out raises, naming its ROADMAP item: the
+    asynchronous loop worker ("loop") and scan-to-map odometry. A CUDA
+    engine without a card refuses to fall back. The barometer and GPS
+    priors were refused before the keyframe graph was ported; now each
+    lands on the keyframes as a diagonal translation prior."""
     cfg = _cfg(presets)
     if what == "cuda":
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             pipeline.Engine(cfg)
         return
-    if what != "gps":
+    if what in ("loop", "scan_to_map"):
         change = {
-            "loop": ("loop", dict(enable=True)),
-            "baro_prior": ("loop", dict(baro_z_prior=True)),
+            "loop": ("loop", dict(async_loop=True)),
             "scan_to_map": ("odometry", dict(enable_scan_to_map=True)),
         }[what]
         cfg = dataclasses.replace(cfg, **{change[0]: dataclasses.replace(getattr(cfg, change[0]), **change[1])})
@@ -180,10 +185,21 @@ def test_engine_refuses_what_this_slice_leaves_out(monkeypatch, what):
             pipeline.Engine(cfg, device="cpu")
         return
     seq, _ = synthetic.simulate_sequence(**dict(COURSE, n_frames=2))
-    seq.gps_stamps = seq.frame_stamps.copy()
-    seq.gps_utm = np.zeros((2, 3))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        datasets.replay(pipeline.Engine(cfg, device="cpu"), seq, CAP, IMU_CAP)
+    if what == "gps":
+        seq.gps_stamps = seq.frame_stamps.copy()
+        seq.gps_utm = np.array([[100.0, 200.0, 3.0], [100.3, 200.0, 3.0]])
+    else:
+        cfg = dataclasses.replace(cfg, loop=dataclasses.replace(cfg.loop, baro_z_prior=True))
+    eng = pipeline.Engine(cfg, device="cpu")
+    datasets.replay(eng, seq, CAP, IMU_CAP)
+    g = eng.state.graph
+    assert bool(g.gps_mask[0]) and eng.state.kf_count >= 1
+    if what == "gps":  # the first fix is the UTM origin
+        np.testing.assert_array_equal(g.gps_xyz[0].numpy(), 0.0)
+        np.testing.assert_allclose(g.gps_info[0].numpy(), [0.01, 0.01, 0.04])
+    else:  # z only, relative to the first reading
+        np.testing.assert_allclose(g.gps_info[0].numpy(), [0.0, 0.0, 4.0])
+        assert float(g.gps_xyz[0, 2]) == 0.0
 
 
 def test_simulated_sequence_identical():

@@ -1,6 +1,6 @@
 """PyTorch port point ops against the JAX package on the CPU: PLANE
-regularization, nearest-neighbour search, and the plain twins of K1 and K3
-against the Pallas kernels run in interpret mode (mirroring
+regularization, nearest-neighbour search, and the plain twins of K1, K2 and
+K3 against the Pallas kernels run in interpret mode (mirroring
 tests/test_pallas_nn.py)."""
 
 import jax.numpy as jnp
@@ -13,7 +13,7 @@ from rivslam_tpu.ops import knn as ref_knn
 from rivslam_tpu.ops import pallas_nn
 from rivslam_tpu.core.pointcloud import RadarCloud as RefCloud
 from rivslam_tpu.core.pointcloud import masked_xyz as ref_masked_xyz
-from rivslam_tpu_torch.ops import eig3, knn, nn_argmin, nn_gather
+from rivslam_tpu_torch.ops import eig3, knn, nn_argmin, nn_corr, nn_gather
 
 # d2 tolerances of tests/test_pallas_nn.py: the interpreted kernel's cross
 # term is an XLA dot, the twin's three separately rounded products; features
@@ -277,3 +277,109 @@ def test_nearest_neighbor_rejects_bad_inputs(bad):
         m = torch.ones(2, 21, dtype=torch.bool)
     with pytest.raises(ValueError):
         nn_argmin.nearest_neighbor(q, r, m)
+
+
+# ---- K2's plain twin vs fused_correspondence_pallas(interpret=True) ---------
+# (tests/test_pallas_nn.py:44-60: idx equal, d2 within rtol 1e-4 / atol 1e-3,
+# the gathered rows equal)
+
+
+def _k2_pallas(q, r, mask, feats):
+    """The interpreted TPU kernel, one problem at a time."""
+    outs = [
+        pallas_nn.fused_correspondence_pallas(
+            jnp.asarray(q[b]), jnp.asarray(r[b]), jnp.asarray(mask[b]), jnp.asarray(feats[b]),
+            interpret=True,
+        )
+        for b in range(len(q))
+    ]
+    return [np.stack([np.asarray(o[k]) for o in outs]) for k in range(3)]
+
+
+def _k2_case(case):
+    rng = np.random.default_rng(11)
+    if case == "contract":  # tests/test_pallas_nn.py:44-60's inputs
+        shape, F, masked = (1, 300, 700), 9, 0.15
+    elif case == "batched":
+        shape, F, masked = (3, 256, 512), 12, 0.2
+    elif case == "ragged":
+        shape, F, masked = (2, 97, 1100), 5, 0.3
+    else:  # F at its bounds
+        shape, F, masked = (2, 64, 600), {"F1": 1, "F128": 128}[case], 0.1
+    B, n, m = shape
+    q = rng.normal(size=(B, n, 3)).astype(np.float32) * 10
+    r = rng.normal(size=(B, m, 3)).astype(np.float32) * 10
+    mask = rng.uniform(size=(B, m)) > masked
+    feats = rng.normal(size=(B, m, F)).astype(np.float32)
+    return q, r, mask, feats
+
+
+@pytest.mark.parametrize("case", ["contract", "batched", "ragged", "F1", "F128"])
+def test_fused_correspondence_plain_matches_pallas(case):
+    q, r, mask, feats = _k2_case(case)
+    idx, d2, g = (t.numpy() for t in nn_corr.fused_correspondence(*map(torch.as_tensor, (q, r, mask, feats))))
+    pal_idx, pal_d2, pal_g = _k2_pallas(q, r, mask, feats)
+    assert idx.dtype == np.int32 and g.shape == feats.shape[:1] + q.shape[1:2] + feats.shape[2:]
+    np.testing.assert_array_equal(idx, pal_idx)
+    np.testing.assert_allclose(d2, pal_d2, rtol=D2_RTOL, atol=D2_ATOL)
+    np.testing.assert_array_equal(g, pal_g)
+    np.testing.assert_array_equal(g, np.take_along_axis(feats, idx[..., None].astype(np.int64), 1))
+
+
+def test_fused_correspondence_plain_all_masked():
+    """No valid ref: idx 0, d2 1e30 and zero features, as the TPU kernel."""
+    q, r, mask, feats = _k2_case("batched")
+    mask[0] = False
+    idx, d2, g = nn_corr.fused_correspondence(*map(torch.as_tensor, (q, r, mask, feats)))
+    pal_idx, pal_d2, pal_g = _k2_pallas(q[:1], r[:1], mask[:1], feats[:1])
+    assert (d2[0].numpy() > 1e29).all() and (pal_d2 > 1e29).all()
+    np.testing.assert_array_equal(idx[0].numpy(), 0)
+    np.testing.assert_array_equal(idx[0].numpy(), pal_idx[0])
+    np.testing.assert_array_equal(g[0].numpy(), 0.0)
+    np.testing.assert_array_equal(pal_g[0], 0.0)
+    assert mask[1, idx[1].numpy()].all()
+
+
+def test_fused_correspondence_plain_first_index_wins_ties():
+    """Exact duplicates within a 512-ref tile and across the tile edge: the
+    first index and its row win, as in the TPU kernel."""
+    r = np.full((1, 1100, 3), 50.0, np.float32)
+    r[0, :5] = np.arange(15, dtype=np.float32).reshape(5, 3)
+    r[0, 300], r[0, 600], r[0, 1050] = r[0, 1], r[0, 2], r[0, 3]
+    q = r[:, :5].copy()
+    mask = np.ones((1, 1100), bool)
+    mask[0, 4] = False
+    feats = np.arange(1100 * 3, dtype=np.float32).reshape(1, 1100, 3)
+    idx, _, g = nn_corr.fused_correspondence(*map(torch.as_tensor, (q, r, mask, feats)))
+    pal_idx, _, pal_g = _k2_pallas(q, r, mask, feats)
+    np.testing.assert_array_equal(idx[0].numpy()[:4], [0, 1, 2, 3])
+    np.testing.assert_array_equal(idx.numpy(), pal_idx)
+    np.testing.assert_array_equal(g.numpy(), pal_g)
+
+
+def test_fused_correspondence_on_cpu_uses_the_twin_and_counts_no_launch():
+    args = [torch.as_tensor(a) for a in _k2_case("ragged")]
+    before = nn_corr.fused_correspondence.launches
+    out = nn_corr.fused_correspondence(*args)
+    plain = nn_corr.fused_correspondence_plain(*args)
+    assert nn_corr.fused_correspondence.launches == before
+    assert all(torch.equal(a, b) for a, b in zip(out, plain))
+    # the twin is K3's plain scan plus the gather
+    idx, d2 = nn_argmin.nearest_neighbor_plain(*args[:3])
+    assert torch.equal(out[0], idx) and torch.equal(out[1], d2)
+
+
+@pytest.mark.parametrize("bad", ["query_shape", "mask_dtype", "feats_m", "feats_0", "feats_129"])
+def test_fused_correspondence_rejects_bad_inputs(bad):
+    q, r = torch.zeros(2, 10, 3), torch.zeros(2, 20, 3)
+    m, f = torch.ones(2, 20, dtype=torch.bool), torch.zeros(2, 20, 12)
+    if bad == "query_shape":
+        q = torch.zeros(2, 10, 4)
+    elif bad == "mask_dtype":
+        m = m.float()
+    elif bad == "feats_m":
+        f = torch.zeros(2, 21, 12)
+    else:
+        f = torch.zeros(2, 20, int(bad.split("_")[1]))
+    with pytest.raises(ValueError):
+        nn_corr.fused_correspondence(q, r, m, f)
