@@ -6,11 +6,14 @@ Phases, each announced by a flushed "== phase" line:
   1. device   the card's name and power limit (nvidia-smi) and device count;
   2. build    K1 (csrc/nn_gather.cu), K2 (csrc/nn_corr.cu) and K3
               (csrc/nn_argmin.cu), one nvcc each, started together; wall
-              times and ptxas reports;
+              times, ptxas reports, and each scan loop's instructions per
+              (query, target) pair from cuobjdump -sass;
   3. data     bench.py's protocol: B=256 frame pairs, capacity N=M=1024,
               from the port's numpy copy of the simulator;
-  4. K1       the kernel against its plain twin on the card, on the main
-              path's inputs and on ragged, fully masked and exact-tie cases;
+  4. K1       both block shapes of the kernel against its plain twin on the
+              card, on the main path's inputs and on ragged, fully masked
+              and exact-tie cases; the exact ties in the main path's inputs,
+              counted with the twin's arithmetic;
   5. main     prepare (KNN, then RBF) + register_dispatch with the fused
               correspondence kernel on, launch counts read around the run;
               convergence and per-pair error against the ground truth, the
@@ -26,19 +29,26 @@ Phases, each announced by a flushed "== phase" line:
               ICP, K2 launches read around each; convergence, error, and a
               small input against the CPU run;
   9. engine   the "cp" preset as shipped (loop closure on, K1 on) over the
-              120-frame "cp" validation course at capacity 1024: the
-              loop-corrected ATE and the window backend's own (uncorrected)
-              ATE, each held to 1.5x the JAX engine's; keyframes, loops
-              closed, loop_stats, per-frame latency, peak memory, K1/K2/K3
-              launches; then the first 8 frames of the loop-off path on the
-              card against the CPU;
+              120-frame "cp" validation course at capacity 1024, for engine
+              seeds 0, 1 and 2: the loop-corrected ATE and the window
+              backend's own (uncorrected) ATE, each held to 1.5x the JAX
+              engine's for the same seed; keyframes, loops closed,
+              loop_stats, per-frame latency, peak memory, K1/K2/K3 launches
+              and the backend's CUDA graph replays; then the first 8 frames
+              of the loop-off path on the card against the CPU;
  10. engine   the same course through the exact registration
      exact    (validation.build_course_cfg("cp", use_fast_path=False)): K2
               launches, ATE held to 1.5x the JAX engine's, loops closed;
  11. K3       the kernel against its plain twin on the card: the engine's
               fitness inputs, B=256, ragged, masked and exact-tie cases;
- 12. timing   K3 and K2 per launch at their engine's shape and at B=256, the
-              plain twins, the library compositions, and the bounds.
+              K2 and K1 on the exact and the preset engine's last
+              correspondence step;
+ 12. timing   K1, K2 and K3 per launch on the same inputs: the scan-match
+              pairs (B=256), random clouds (B=256) and the preset engine's
+              registration shape (B=1, N=M=1024); K2 at the exact engine's
+              shape and K3 at the engine's fitness inputs; the plain twins,
+              the library compositions and the bounds; the A/B of K1's
+              two block shapes at B=256 and B=1, in turns.
 
 Any failed check raises, and the script then exits non-zero without a
 result. The line before the last is a JSON object listing the kernels; the
@@ -51,6 +61,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -59,23 +71,37 @@ import numpy as np
 import torch
 
 B, CAPACITY = 256, 1024  # bench.py:50-53
-H100_F32_OPS = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
+# The bound of the three nearest-neighbour kernels is instructions: per
+# (query, valid target) pair the distance takes 8 unfused float32
+# instructions (each product and sum rounded on its own, no FMA), the
+# running minimum a compare and two selects. A Hopper SM issues 128
+# thread-instructions a clock, so the card's rate is SMs x 128 x its
+# maximum SM clock, read from the card (phase 1). Phase 2 prints each scan
+# loop's count from cuobjdump -sass beside this one.
+INSTR_PER_PAIR = 11
+LANES_PER_SM = 128
 H100_BYTES = 3.35e12  # HBM3, H100 SXM data sheet
-D2_RTOL, D2_ATOL = 1e-4, 1e-6  # d2: relative, with a floor for d2 near 0
-G_ATOL = 1e-5  # gathered features (exact ties are means of a few values)
 MIN_CONVERGED = 0.9
 MAX_MEDIAN_TERR_M = 0.1
 # the engine phases: the "cp" validation course (rivslam_tpu/eval/validation.py:42)
 COURSE = dict(seed=21, radius=8.0, omega=0.25, dt=0.25, n_frames=120, capacity=1024,
               world_points=20000, extent=30.0)
 ENGINE_CAPACITY, ENGINE_IMU_CAPACITY, ENGINE_SEED = 1024, 64, 0
+ENGINE_SEEDS = (0, 1, 2)  # the preset run's engine seeds (the exact run: seed 0)
 # the JAX engine on this course and seeds, float32 on the CPU
 # (`PYTHONPATH=. python tests/test_torch_engine_loop.py`): full-trajectory
 # ATE after loop correction, the window backend's own ATE (what the engine
-# gives with loop closure off: tests/test_torch_engine.py), loops closed
+# gives with loop closure off: tests/test_torch_engine.py), keyframes and
+# loops closed, by engine seed
 REF = {
-    "preset": {"ate_m": 0.28056248288268654, "uncorrected_ate_m": 0.7365842276827688, "loops": 1},
-    "exact": {"ate_m": 0.24116977638213324, "uncorrected_ate_m": 0.7587948732727486, "loops": 2},
+    "preset": {
+        0: {"ate_m": 0.28056248288268654, "uncorrected_ate_m": 0.7365842276827688, "keyframes": 75, "loops": 1},
+        1: {"ate_m": 0.1887125756414635, "uncorrected_ate_m": 0.7636182678317872, "keyframes": 76, "loops": 1},
+        2: {"ate_m": 0.34955880087721614, "uncorrected_ate_m": 0.6301865835767001, "keyframes": 75, "loops": 2},
+    },
+    "exact": {
+        0: {"ate_m": 0.24116977638213324, "uncorrected_ate_m": 0.7587948732727486, "keyframes": 78, "loops": 2},
+    },
 }
 MAX_ATE_RATIO = 1.5
 CPU_FRAMES = 8
@@ -101,39 +127,86 @@ def check(ok: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def time_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time of fn() over reps calls, by CUDA events."""
+def time_ms(fn, reps: int, warmup: int = 1, graph: bool = False) -> float:
+    """Mean time of fn() over reps calls, by CUDA events. With ``graph`` the
+    reps calls are captured in one CUDA graph and the graph is timed, so
+    the host's launch overhead drops out: the device time per call, what a
+    small (B=1) launch costs inside the engine's graphs and streams."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        start.record()
+        g.replay()
+    else:
+        start.record()
+        for _ in range(reps):
+            fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
 
 
-def compare_k1(name, nn_gather, q, r, m, f):
-    """K1 against its plain twin on the same inputs; returns the max abs error."""
-    d2, g = nn_gather.fused_gather(q, r, m, f)
+def k1_ties(nn_gather, q, r, m, f):
+    """The twin's tie counts [B, N] (valid targets at each query's minimum)
+    and how far K1's features may lie from the twin's [B, F, N]: zero for
+    one winner or a tie of two, where the order of the sum cannot matter. A
+    tie of n >= 3 is summed in ascending index order by K1 and in the
+    equality bmm's order by the twin; each order rounds n - 1 additions by
+    up to half an ulp of the partial sums, so the two sums differ by at most
+    n - 1 ulps of the sum of the tied features' magnitudes (all orders of 3-
+    and 4-term float32 sums reach 2 ulps), which the division by n scales,
+    and the two quotients round by up to an ulp of the mean."""
+    _, abs_sum, cnt = nn_gather._plain_scan(q, r, m, f.abs())
+    _, g_sum, _ = nn_gather._plain_scan(q, r, m, f)
+    n = torch.clamp_min(cnt, 1.0)[:, None]
+
+    def ulp(x):
+        return torch.nextafter(x, torch.full_like(x, torch.inf)) - x
+
+    tol = (n - 1.0) * ulp(abs_sum) / n + ulp((g_sum / n).abs())
+    return cnt.to(torch.int32), torch.where((cnt >= 3)[:, None], tol, 0.0)
+
+
+def compare_k1(name, nn_gather, q, r, m, f, variant=None):
+    """K1 (the block shape ``variant``, default the one the port launches)
+    against its plain twin on the same inputs: d2 bitwise, the features
+    bitwise for one winner or a tie of two; a tie of three or more within
+    k1_ties' tolerance (the twin's equality bmm sums in the library's order,
+    K1 in index order). Returns (max abs error, d2, g, tie counts)."""
+    if variant is None:
+        variant = nn_gather.variant_for(q.shape[0], q.shape[1], q.device)
+        d2, g = nn_gather.fused_gather(q, r, m, f)
+    else:
+        d2, g = nn_gather._launch(q, r, m, f, variant)
     pd2, pg = nn_gather.fused_gather_plain(q, r, m, f)
+    cnt, tol = k1_ties(nn_gather, q, r, m, f)
     torch.cuda.synchronize()
-    check(bool(torch.isfinite(g).all()), f"K1 {name}: non-finite features")
-    d2_err = (d2 - pd2).abs()
-    check(bool((d2_err <= D2_RTOL * pd2.abs() + D2_ATOL).all()),
-          f"K1 {name}: d2 differs from the plain twin by up to {d2_err.max().item()}")
-    g_err = (g - pg).abs().max().item() if g.numel() else 0.0
-    check(g_err <= G_ATOL, f"K1 {name}: features differ by {g_err} > {G_ATOL}")
-    err = max(d2_err.max().item(), g_err)
-    say(f"K1 {name}: B,N,M,F={tuple(q.shape[:2]) + (r.shape[1], f.shape[1])} "
-        f"max|d2-plain|={d2_err.max().item():.3e} max|g-plain|={g_err:.3e}")
-    return err, d2, g
+    vname = variant.name
+    check(bool(torch.isfinite(g).all()), f"K1 {vname} {name}: non-finite features")
+    check(torch.equal(d2, pd2), f"K1 {vname} {name}: d2 differs from the plain twin by up to "
+          f"{(d2 - pd2).abs().max().item()}")
+    few = (cnt <= 2)[:, None, :].expand_as(g)
+    check(torch.equal(g[few], pg[few]), f"K1 {vname} {name}: features of one winner or a "
+          "two-way tie differ from the plain twin")
+    g_err = (g - pg).abs()
+    check(bool((g_err <= tol).all()), f"K1 {vname} {name}: tie features beyond the tie-sum tolerance")
+    err = g_err.max().item() if g.numel() else 0.0
+    say(f"K1 {vname} {name}: B,N,M,F={tuple(q.shape[:2]) + (r.shape[1], f.shape[1])} d2 bitwise "
+        f"equal; features bitwise equal but for {int((cnt >= 3).sum())} ties of 3 or more "
+        f"(max|g-plain| {err:.3e})")
+    return err, d2, g, cnt
 
 
-def k1_cases(nn_gather, dev):
+def k1_cases(nn_gather, dev, variant=None):
     """Ragged sizes, fully masked targets and injected exact ties."""
     rng = np.random.default_rng(7)
     t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=dev)
@@ -143,12 +216,12 @@ def k1_cases(nn_gather, dev):
     r = t(rng.normal(size=(3, 1500, 3)) * 10)
     m = t(rng.uniform(size=(3, 1500)) > 0.15, torch.bool)
     f = t(rng.normal(size=(3, 9, 1500)))
-    errs = [compare_k1("ragged", nn_gather, q, r, m, f)[0]]
+    errs = [compare_k1("ragged", nn_gather, q, r, m, f, variant)[0]]
 
     # fully masked target in problem 0, partly masked in problem 1
     m = t(np.stack([np.zeros(1500, bool), rng.uniform(size=1500) > 0.5, np.ones(1500, bool)]),
           torch.bool)
-    err, d2, g = compare_k1("masked", nn_gather, q, r, m, f)
+    err, d2, g, _ = compare_k1("masked", nn_gather, q, r, m, f, variant)
     check(bool((d2[0] >= 1e30).all()) and bool((g[0] == 0).all()),
           "K1 masked: a problem without valid targets must give d2 >= 1e30, zero features")
     errs.append(err)
@@ -163,13 +236,62 @@ def k1_cases(nn_gather, dev):
     ff = rng.normal(size=(2, 9, 1536))
     r, q, f = t(rr), t(qq), t(ff)
     m = torch.ones((2, 1536), dtype=torch.bool, device=dev)
-    err, d2, g = compare_k1("ties", nn_gather, q, r, m, f)
+    err, d2, g, _ = compare_k1("ties", nn_gather, q, r, m, f, variant)
     f32 = ff.astype(np.float32)
     want = (f32[:, :, 50:256] + f32[:, :, 1074:1280]) / np.float32(2)
     got = g[:, :, 50:256].cpu().numpy()
-    check(np.abs(got - want).max() <= G_ATOL, "K1 ties: two-way ties are not averaged")
+    check(np.array_equal(got, want), "K1 ties: two-way ties are not averaged")
     errs.append(err)
     return max(errs)
+
+
+def sass_scan_loops(lib_path: str) -> dict | None:
+    """Each kernel's main scan loop in a built library, read from
+    ``cuobjdump -sass``: of the innermost loops (backward branches with no
+    other inside), the one whose body holds the most float arithmetic. Per
+    kernel: the body's instruction counts by class and the (query, target)
+    pairs it covers (8 arithmetic instructions each). None when the toolkit
+    has no cuobjdump."""
+    exe = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    exe = exe if os.path.exists(exe) else shutil.which("cuobjdump")
+    if not exe:
+        return None
+    out = subprocess.run([exe, "-sass", lib_path], capture_output=True, text=True,
+                         timeout=300, check=True).stdout
+    funcs, cur = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            funcs[cur] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if cur and m:
+            funcs[cur].append((int(m.group(1), 16), m.group(2)))
+    classes = {"arith": ("FMUL", "FADD", "FFMA"), "compare": ("FSETP", "ISETP", "PLOP3"),
+               "select": ("FSEL", "SEL", "MOV", "IMAD.MOV", "IADD3", "VIADD"), "shared": ("LDS",)}
+    report = {}
+    for name, ins in funcs.items():
+        back = []
+        for addr, text in ins:
+            m = re.search(r"\bBRA\s+0x([0-9a-f]+)", text)
+            if m and int(m.group(1), 16) < addr:
+                back.append((int(m.group(1), 16), addr))
+        best = None
+        for lo, hi in back:
+            if any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in back):
+                continue  # not innermost
+            ops = [re.sub(r"^@!?U?P[T0-9]\s+", "", t).split()[0] for a, t in ins if lo <= a <= hi]
+            counts = {c: sum(any(o == p or o.startswith(p + ".") for p in pre) for o in ops)
+                      for c, pre in classes.items()}
+            counts["ffma"] = sum(o.startswith("FFMA") for o in ops)
+            counts["total"] = len(ops)
+            if best is None or counts["arith"] > best["arith"]:
+                best = counts
+        if best and best["arith"] >= 8:
+            best["pairs"] = best["arith"] / 8
+            report[name] = best
+    return report
 
 
 def compare_k3(name, nn_argmin, q, r, m):
@@ -346,10 +468,25 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0])
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    instr_rate = sms * LANES_PER_SM * clock_mhz * 1e6
     say(smi)
-    say(f"torch {torch.__version__} cuda {torch.version.cuda}; device {kind!r}, count {count}")
+    say(f"torch {torch.__version__} cuda {torch.version.cuda}; device {kind!r}, count {count}; "
+        f"{sms} SMs at a maximum SM clock of {clock_mhz:.0f} MHz: {instr_rate:.4e} float32 "
+        f"instructions/s ({LANES_PER_SM} per SM a clock)")
     card = f"[{smi}]"
+
+    def bound(pairs, nbytes):
+        """The least time (ms) for ``pairs`` (query, valid target) pairs and
+        ``nbytes`` of inputs read once and outputs written once, and which
+        of the two bounds it."""
+        t_ops, t_bytes = INSTR_PER_PAIR * pairs / instr_rate, nbytes / H100_BYTES
+        return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
     phase("2 build")
     from concurrent.futures import ThreadPoolExecutor
@@ -362,6 +499,14 @@ def main() -> None:
         say(f"{name}: nvcc built {os.path.relpath(built.path)} in {built.seconds:.2f} s")
         for ln in built.ptxas:
             say(f"  {ln}")
+        loops = sass_scan_loops(built.path)
+        if loops is None:
+            say(f"{name}: no cuobjdump in this toolkit; scan loops not read")
+            continue
+        for fn, c in loops.items():
+            per = {k: round(c[k] / c["pairs"], 3) for k in ("total", "arith", "compare", "select", "shared")}
+            say(f"{name} scan loop of {fn[-60:]}: {c['total']} instructions for {c['pairs']:g} pairs; "
+                f"per pair {per} (FFMA in the loop: {c['ffma']}); the bound counts {INSTR_PER_PAIR}")
 
     phase("3 data")
     t0 = time.perf_counter()
@@ -381,8 +526,20 @@ def main() -> None:
                                     c[..., 1, 1], c[..., 1, 2], c[..., 2, 2]], dim=1,
     ).contiguous()
     k1_args = (src_xyz.contiguous(), tgt_sent, tgt.mask.contiguous(), feats_t)
-    k1_err, _, _ = compare_k1("main-path inputs", nn_gather, *k1_args)
+    k1_err, _, _, cnt = compare_k1("main-path inputs", nn_gather, *k1_args)
+    tied, valid_q = cnt >= 2, src_mask.bool()
+    say(f"exact ties in the main path's inputs (the twin's arithmetic, B={B}): "
+        f"{int(tied.sum())} of {cnt.numel()} queries tie ({int((tied & valid_q).sum())} of "
+        f"{int(valid_q.sum())} valid source points; share {tied.float().mean().item():.3e}), "
+        f"ties of 3 or more {int((cnt >= 3).sum())}, largest tie {int(cnt.max())}")
     k1_err = max(k1_err, k1_cases(nn_gather, dev))
+    # each of the two block shapes on the main path's inputs and on the
+    # cases: the wrapper picks 128x2 at B=256 and 64x1 for the small ones
+    check(nn_gather.variant_for(B, CAPACITY, dev) == nn_gather.BATCH_VARIANT
+          and nn_gather.variant_for(1, CAPACITY, dev) == nn_gather.SINGLE_VARIANT,
+          "K1: variant_for does not pick 128x2 at B=256 and 64x1 at B=1")
+    k1_err = max(k1_err, k1_cases(nn_gather, dev, nn_gather.BATCH_VARIANT),
+                 compare_k1("main-path inputs", nn_gather, *k1_args, variant=nn_gather.SINGLE_VARIANT)[0])
 
     phase("5 main path")
     results, launches = {}, {}
@@ -467,17 +624,13 @@ def main() -> None:
     library_ms = time_ms(library_step, reps=20, warmup=2)
     pairs = N * int(m.sum().item())  # every query against every valid target
     k1_bytes = 4 * (Bk * N * 3 + Bk * M * 3 + Bk * F * M + Bk * N + Bk * F * N) + Bk * M
-    t_ops, t_bytes = 8 * pairs / H100_F32_OPS, k1_bytes / H100_BYTES
-    bound_ms = 1e3 * max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    bound_ms, bound_by = bound(pairs, k1_bytes)
     per_batch = launches["KNN"]
     say(f"K1 {k1_ms:.4f} ms/launch, plain twin {plain_ms:.4f} ms, flag-off step "
-        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {8 * pairs:.3e} ops, "
-        f"{k1_bytes:.3e} bytes) at B,N,M,F={Bk},{N},{M},{F} {card}")
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {INSTR_PER_PAIR * pairs:.3e} "
+        f"instructions, {k1_bytes:.3e} bytes) at B,N,M,F={Bk},{N},{M},{F} {card}")
     say(f"K1 launches per batch of {B} scan matches: KNN {launches['KNN']}, RBF {launches['RBF']} "
         f"({per_batch / B:.3f} per frame)")
-    k1 = {"ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-          "library_ms": library_ms}
 
     phase("7 K2 against its plain twin")
     cfg_x = RegistrationConfig(use_fast_path=False)
@@ -529,11 +682,14 @@ def main() -> None:
     say(f"cp course: {n_frames} frames, {len(seq.imu_stamps)} IMU samples, simulated in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    def drive_engine(key, cfg):
+    def drive_engine(key, cfg, seed=ENGINE_SEED):
         """One 120-frame run, the launch counts zeroed just before and read
         just after; checks the ATE, corrected and not, against the JAX
-        engine's."""
-        eng = pipeline.Engine(cfg, seed=ENGINE_SEED, device=dev)
+        engine's for the same seed. The Engine captures the backend's CUDA
+        graphs at construction, before the counts are zeroed."""
+        eng = pipeline.Engine(cfg, seed=seed, device=dev)
+        graphs = eng.graphs
+        replays0 = {"preintegrate": graphs.preintegrate.replays, "window solve": graphs.solve.replays}
         events, wall = [torch.cuda.Event(enable_timing=True)], []
 
         def tick(i, n):  # replay calls this after each frame; process_frame has synced
@@ -549,11 +705,13 @@ def main() -> None:
         outs = datasets.replay(eng, seq, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY, progress=tick)
         torch.cuda.synchronize()
         n = read_counts()
+        replays = {"preintegrate": graphs.preintegrate.replays - replays0["preintegrate"],
+                   "window solve": graphs.solve.replays - replays0["window solve"]}
         engine_s = wall[-1] - wall[0]
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         wall_ms = np.diff(wall) * 1e3
         ev_ms = np.array([a.elapsed_time(b) for a, b in zip(events[:-1], events[1:])])
-        ref = REF[key]
+        ref = REF[key][seed]
         ates = {}
         for corrected in (True, False):
             ts, poses = eng.trajectory(corrected=corrected)
@@ -565,15 +723,16 @@ def main() -> None:
         conv = float(np.mean([o["registration_ok"] for o in outs[1:]]))
         loops = eng.loop_stats["accepted"]
         loop_frames = [i for i, o in enumerate(outs) if o["loop_found"]]
+        key = f"{key} seed {seed}"
         say(f"engine {key}: {n_frames} frames in {engine_s:.2f} s = {n_frames / engine_s:.2f} frames/s; "
             f"full ATE {ates[True]:.4f} m loop-corrected (JAX engine on the CPU: {ref['ate_m']:.4f} m), "
             f"{ates[False]:.4f} m uncorrected (JAX: {ref['uncorrected_ate_m']:.4f} m), limit "
-            f"{MAX_ATE_RATIO}x; keyframes {n_kf}; loops closed {loops} at frames {loop_frames} "
-            f"(JAX: {ref['loops']}); "
-            f"converged share {conv:.4f}")
+            f"{MAX_ATE_RATIO}x; keyframes {n_kf} (JAX: {ref['keyframes']}); loops closed {loops} at "
+            f"frames {loop_frames} (JAX: {ref['loops']}); converged share {conv:.4f}")
         say(f"engine {key}: loop_stats {json.dumps(eng.loop_stats)}")
         say(f"engine {key}: launches {n} (per frame: "
-            f"{ {k: round(v / n_frames, 3) for k, v in n.items()} })")
+            f"{ {k: round(v / n_frames, 3) for k, v in n.items()} }); CUDA graph replays {replays} "
+            f"(per frame: { {k: round(v / n_frames, 3) for k, v in replays.items()} })")
         for name, v in (("wall clock", wall_ms), ("CUDA events", ev_ms)):
             say(f"engine {key}: per-frame latency by {name} over frames 1..{n_frames - 1}: median "
                 f"{np.median(v[1:]):.3f} ms, p95 {np.percentile(v[1:], 95):.3f} ms, max "
@@ -586,12 +745,23 @@ def main() -> None:
               f"engine {key}: ATE {ates[True]} m > {MAX_ATE_RATIO} x {ref['ate_m']} m")
         check(ates[False] <= MAX_ATE_RATIO * ref["uncorrected_ate_m"],
               f"engine {key}: uncorrected ATE {ates[False]} m > {MAX_ATE_RATIO} x {ref['uncorrected_ate_m']} m")
-        return eng, outs, n
+        return eng, outs, n, {"ate_m": ates[True], "uncorrected_ate_m": ates[False], "keyframes": n_kf,
+                              "loops": loops, "median_ms": float(np.median(wall_ms[1:]))}
 
-    phase("9 engine: the cp preset as shipped, loop closure on")
-    eng, outs, eng_counts = drive_engine("preset", preset_cfg(presets))
-    check(eng.loop_stats["accepted"] >= 1, "engine preset: no loop closed")
-    check(eng_counts["K1"] > 0 and eng_counts["K3"] > 0, "engine preset: K1 or K3 never launched")
+    phase("9 engine: the cp preset as shipped, loop closure on, engine seeds "
+          + ", ".join(map(str, ENGINE_SEEDS)))
+    seeds = {}
+    for seed in ENGINE_SEEDS:
+        e, o, counts, seeds[seed] = drive_engine("preset", preset_cfg(presets), seed)
+        check(e.loop_stats["accepted"] >= 1, f"engine preset seed {seed}: no loop closed")
+        check(counts["K1"] > 0 and counts["K3"] > 0, f"engine preset seed {seed}: K1 or K3 never launched")
+        if seed == ENGINE_SEED:
+            eng, outs, eng_counts = e, o, counts
+    for k in ("ate_m", "uncorrected_ate_m", "keyframes", "loops", "median_ms"):
+        port = [seeds[sd][k] for sd in ENGINE_SEEDS]
+        jax_ = [REF["preset"][sd][k] for sd in ENGINE_SEEDS] if k != "median_ms" else None
+        say(f"engine preset over seeds {list(ENGINE_SEEDS)}: {k} port {port} (mean {np.mean(port):.4f})"
+            + (f", JAX engine on the CPU {jax_} (mean {np.mean(jax_):.4f})" if jax_ else f" {card}"))
 
     # the first frames of the loop-off path on the card and on the CPU,
     # float32 and float64, same seed and therefore the same RANSAC draws
@@ -616,7 +786,7 @@ def main() -> None:
     check(gap <= tol, f"card and CPU differ by {gap} > {tol}")
 
     phase("10 engine: exact registration (use_fast_path=False)")
-    eng_x, _, exact_counts = drive_engine("exact", exact_cfg(presets))
+    eng_x, _, exact_counts, _ = drive_engine("exact", exact_cfg(presets))
     check(exact_counts["K2"] > 0, "engine exact: K2 never launched")
 
     phase("11 K3 against its plain twin")
@@ -633,7 +803,20 @@ def main() -> None:
     k2_eng = exact_corr_inputs(apdgicp._map(xs.odo.target, lambda t_: t_[None]), xs.kf_clouds[-1][0][None])
     k2_err = max(k2_err, compare_k2("exact engine inputs", nn_corr, *k2_eng)[0])
 
-    phase("12 K3 and K2 timing")
+    # K1 at the preset engine's registration shape: the odometry keyframe
+    # as target, the last keyframe cloud as query (B=1, N=M=1024, F=9)
+    ps = eng.state
+    tgt1 = apdgicp._map(ps.odo.target, lambda t_: t_[None])
+    c1 = tgt1.cov
+    k1_eng = (ps.kf_clouds[-1][0][None].contiguous(),
+              torch.where(tgt1.mask[..., None], tgt1.xyz, SENTINEL).contiguous(),
+              tgt1.mask.contiguous(),
+              torch.stack(list(tgt1.xyz.unbind(-1)) + [c1[..., 0, 0], c1[..., 0, 1], c1[..., 0, 2],
+                                                      c1[..., 1, 1], c1[..., 1, 2], c1[..., 2, 2]],
+                          dim=1).contiguous())
+    k1_err = max(k1_err, compare_k1("preset engine inputs", nn_gather, *k1_eng)[0])
+
+    phase("12 K1, K2 and K3 timing")
 
     def k3_library(q, r, m):  # bmm + norms + masked argmin: the plain-torch composition
         d2 = (q * q).sum(-1)[..., None] + (r * r).sum(-1)[:, None, :] - 2.0 * torch.bmm(q, r.transpose(1, 2))
@@ -645,41 +828,86 @@ def main() -> None:
         idx, d2 = k3_library(q, r, m)
         return idx, d2, torch.take_along_dim(f, idx[..., None], dim=1)
 
-    def bound(ops, nbytes):
-        t_ops, t_bytes = ops / H100_F32_OPS, nbytes / H100_BYTES
-        return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    def k1_library(q, r, m, f_t):  # the flag-off correspondence step: bmm + argmin + gather
+        d2 = (q * q).sum(-1)[..., None] + (r * r).sum(-1)[:, None, :] - 2.0 * torch.bmm(q, r.transpose(1, 2))
+        idx = torch.argmin(d2, dim=-1)
+        best = torch.take_along_dim(d2, idx[..., None], dim=-1)
+        return best, torch.gather(f_t, 2, idx[:, None, :].expand(-1, f_t.shape[1], -1))
+
+    def timed(name, kernel, plain, library, q, r, m, f_bytes, reps):
+        """One kernel on one input set: ms per launch, plain twin, library
+        composition, the bound from this run's inputs. A single problem
+        (B=1) is timed inside a CUDA graph: back-to-back host launches of a
+        ~10 us kernel would time the host. Its host-launched time is printed
+        beside it: the engine launches K1 and K2 from the host, so that is
+        what a launch costs there, and how B=1 was timed before graphs."""
+        Bq, Nq, Mq = q.shape[0], q.shape[1], r.shape[1]
+        small = Bq == 1
+        ms = time_ms(kernel, reps=reps, warmup=3, graph=small)
+        host = f"; host-launched {time_ms(kernel, reps=reps, warmup=3):.4f} ms/launch" if small else ""
+        pms = time_ms(plain, reps=5, graph=small)
+        lms = time_ms(library, reps=reps, warmup=3, graph=small)
+        pairs = Nq * int(m.sum().item())  # every query against every valid ref
+        nbytes = 4 * (Bq * Nq * 3 + Bq * Mq * 3 + 2 * Bq * Nq) + Bq * Mq + f_bytes
+        bms, by = bound(pairs, nbytes)
+        say(f"{name} (B,N,M={Bq},{Nq},{Mq}{'; device time in a CUDA graph' if small else ''}): "
+            f"{ms:.4f} ms/launch = {bms / ms:.1%} of its bound "
+            f"{bms:.5f} ms ({by}: {INSTR_PER_PAIR * pairs:.3e} instructions, {nbytes:.3e} bytes); "
+            f"plain twin {pms:.4f} ms; library composition {lms:.4f} ms{host} {card}")
+        return {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by, "library_ms": lms}
 
     rng = np.random.default_rng(9)
     qb = torch.as_tensor(rng.normal(size=(256, 1024, 3)) * 10, dtype=torch.float32, device=dev)
     rb = torch.as_tensor(rng.normal(size=(256, 1024, 3)) * 10, dtype=torch.float32, device=dev)
     mb = torch.ones((256, 1024), dtype=torch.bool, device=dev)
-    fb = torch.as_tensor(rng.normal(size=(256, 1024, 12)), dtype=torch.float32, device=dev)
-    k3, k2 = {}, {}
-    for key, (q, r, m), reps in (("engine", (q3, r3, m3), 200), ("B=256", (qb, rb, mb), 20)):
-        Bq, Nq, Mq = q.shape[0], q.shape[1], r.shape[1]
-        ms = time_ms(lambda: nn_argmin.nearest_neighbor(q, r, m), reps=reps, warmup=3)
-        pms = time_ms(lambda: nn_argmin.nearest_neighbor_plain(q, r, m), reps=5)
-        lms = time_ms(lambda: k3_library(q, r, m), reps=reps, warmup=3)
-        ops = 8 * Nq * int(m.sum().item())  # every query against every valid ref
-        nbytes = 4 * (Bq * Nq * 3 + Bq * Mq * 3 + 2 * Bq * Nq) + Bq * Mq
-        bms, by = bound(ops, nbytes)
-        k3[key] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by, "library_ms": lms}
-        say(f"K3 at {key} (B,N,M={Bq},{Nq},{Mq}): {ms:.4f} ms/launch, plain twin {pms:.4f} ms, "
-            f"bmm + masked argmin {lms:.4f} ms, bound {bms:.5f} ms ({by}: {ops:.3e} ops, "
-            f"{nbytes:.3e} bytes) {card}")
-    for key, (q, r, m, f), reps in (("exact engine", k2_eng, 200), ("B=256", (qb, rb, mb, fb), 20)):
-        Bq, Nq, Mq, F = q.shape[0], q.shape[1], r.shape[1], f.shape[2]
-        ms = time_ms(lambda: nn_corr.fused_correspondence(q, r, m, f), reps=reps, warmup=3)
-        pms = time_ms(lambda: nn_corr.fused_correspondence_plain(q, r, m, f), reps=5)
-        lms = time_ms(lambda: k2_library(q, r, m, f), reps=reps, warmup=3)
-        ops = 8 * Nq * int(m.sum().item())
-        # inputs read once (feats in full), outputs written once (g included)
-        nbytes = 4 * (Bq * Nq * 3 + Bq * Mq * 3 + Bq * Mq * F + 2 * Bq * Nq + Bq * Nq * F) + Bq * Mq
-        bms, by = bound(ops, nbytes)
-        k2[key] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by, "library_ms": lms}
-        say(f"K2 at {key} (B,N,M,F={Bq},{Nq},{Mq},{F}): {ms:.4f} ms/launch, plain twin {pms:.4f} ms, "
-            f"bmm + masked argmin + take_along_dim {lms:.4f} ms, bound {bms:.5f} ms ({by}: "
-            f"{ops:.3e} ops, {nbytes:.3e} bytes) {card}")
+    fb_t = torch.as_tensor(rng.normal(size=(256, 9, 1024)), dtype=torch.float32, device=dev)
+    # the same inputs for all three kernels: K1 gathers [B, F, M] features,
+    # K2 the same features as [B, M, F] rows, K3 none
+    sets = {"scan-match pairs": (k1_args, 20), "random clouds": ((qb, rb, mb, fb_t), 20),
+            "preset engine (B=1)": (k1_eng, 200)}
+    timing = {}
+    for sname, ((q, r, m, f_t), reps) in sets.items():
+        f_rows = f_t.transpose(1, 2).contiguous()
+        Fq = f_t.shape[1]
+        fbytes = 4 * Fq * (r.shape[0] * r.shape[1] + q.shape[0] * q.shape[1])
+        timing[("K1", sname)] = timed(
+            f"K1 on {sname}", lambda: nn_gather.fused_gather(q, r, m, f_t),
+            lambda: nn_gather.fused_gather_plain(q, r, m, f_t), lambda: k1_library(q, r, m, f_t),
+            q, r, m, fbytes, reps)
+        timing[("K2", sname)] = timed(
+            f"K2 on {sname}", lambda: nn_corr.fused_correspondence(q, r, m, f_rows),
+            lambda: nn_corr.fused_correspondence_plain(q, r, m, f_rows),
+            lambda: k2_library(q, r, m, f_rows), q, r, m, fbytes + 4 * q.shape[0] * q.shape[1], reps)
+        timing[("K3", sname)] = timed(
+            f"K3 on {sname}", lambda: nn_argmin.nearest_neighbor(q, r, m),
+            lambda: nn_argmin.nearest_neighbor_plain(q, r, m), lambda: k3_library(q, r, m),
+            q, r, m, 0, reps)
+        say(f"on {sname}: K1/K2 {timing[('K1', sname)]['ms'] / timing[('K2', sname)]['ms']:.3f}, "
+            f"K1/K3 {timing[('K1', sname)]['ms'] / timing[('K3', sname)]['ms']:.3f}")
+    q, r, m, f = k2_eng
+    k2 = timed("K2 at the exact engine's shape (F=12)", lambda: nn_corr.fused_correspondence(q, r, m, f),
+               lambda: nn_corr.fused_correspondence_plain(q, r, m, f), lambda: k2_library(q, r, m, f),
+               q, r, m, 4 * f.shape[2] * (r.shape[1] + q.shape[1]) + 4 * q.shape[1], 200)
+    k3 = timed("K3 at the engine's fitness inputs", lambda: nn_argmin.nearest_neighbor(q3, r3, m3),
+               lambda: nn_argmin.nearest_neighbor_plain(q3, r3, m3), lambda: k3_library(q3, r3, m3),
+               q3, r3, m3, 0, 200)
+    k1 = timing[("K1", "preset engine (B=1)")]
+
+    # the A/B of K1's two block shapes, in turns (a, b, b, a), on the
+    # scan-match pairs and at the engine's shape: the choice of variant_for
+    variants = (nn_gather.BATCH_VARIANT, nn_gather.SINGLE_VARIANT)
+    for sname in ("scan-match pairs", "preset engine (B=1)"):
+        (q, r, m, f_t), reps = sets[sname]
+        got = {}
+        for v in variants + variants[::-1]:
+            got.setdefault(v, []).append(
+                time_ms(lambda: nn_gather._launch(q, r, m, f_t, v), reps=reps, warmup=2,
+                        graph=q.shape[0] == 1))
+        for v, t in got.items():
+            port = v == nn_gather.variant_for(q.shape[0], q.shape[1], q.device)
+            say(f"K1 A/B on {sname}: {v.name}{' (launched by the port)' if port else ''}: "
+                f"{t[0]:.4f} / {t[1]:.4f} ms, mean {np.mean(t):.4f} ms {card}")
+
     say(f"launches per frame: preset engine K1 {eng_counts['K1'] / n_frames:.3f}, K3 "
         f"{eng_counts['K3'] / n_frames:.3f}; exact engine K2 {exact_counts['K2'] / n_frames:.3f}, "
         f"K3 {exact_counts['K3'] / n_frames:.3f}")
@@ -692,10 +920,10 @@ def main() -> None:
          "max_abs_err": k1_err, **k1},
         {"name": "K2 fused_correspondence", "route": "cuda", "source": "rivslam_tpu_torch/csrc/nn_corr.cu",
          "replaces": "rivslam_tpu/ops/pallas_nn.py:74", "launches": exact_counts["K2"],
-         "max_abs_err": k2_err, **k2["exact engine"]},
+         "max_abs_err": k2_err, **k2},
         {"name": "K3 nearest_neighbor", "route": "cuda", "source": "rivslam_tpu_torch/csrc/nn_argmin.cu",
          "replaces": "rivslam_tpu/ops/pallas_nn.py:29", "launches": eng_counts["K3"],
-         "max_abs_err": k3_err, **k3["engine"]},
+         "max_abs_err": k3_err, **k3},
     ]
     say(smi)
     say(json.dumps({"kernels": kernels}))

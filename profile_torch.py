@@ -17,8 +17,9 @@ closure on), lets ``--warmup`` frames pass, then traces each of the next
 ``--frames`` frames of ``process_frame`` on its own and prints per frame:
 wall time, the host time of each stage (the Engine's ``record_function``
 scopes, the keyframe graph's among them: ``engine.keyframe``,
-``engine.loop_detection``, ``engine.global_solve``), kernel launches (and
-K1/K2/K3 launches), whether a loop closed, device busy ms, idle share and
+``engine.loop_detection``, ``engine.global_solve``), the kernels run on the
+device, split into those the host launched one by one and those of the
+backend's CUDA graph replays (and K1/K2/K3 launches), whether a loop closed, device busy ms, idle share and
 the top device operations. On the cp course the first loop candidates come
 after ~100 frames (50 m of travel), so ``--loop --warmup 100 --frames 20``
 traces the loop closure.
@@ -184,11 +185,19 @@ def profile_engine(args) -> None:
             kernels, busy, by_name = _device_kernels(state["prof"])
             top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:10]
             stage_ms = {k: 0.0 for k in STAGES}
+            host_launches = graph_launches = 0
             for e in state["prof"].events():
-                if e.name in stage_ms and e.device_type == torch.autograd.DeviceType.CPU:
+                if e.device_type != torch.autograd.DeviceType.CPU:
+                    continue
+                if e.name in stage_ms:
                     stage_ms[e.name] += e.cpu_time_total / 1e3
+                elif e.name.startswith("cudaLaunchKernel") or e.name.startswith("cuLaunchKernel"):
+                    host_launches += 1
+                elif e.name.startswith("cudaGraphLaunch"):
+                    graph_launches += 1
             rows.append({
                 "frame": i, "wall_ms": wall_ms, "kernel_launches": len(kernels),
+                "host_kernel_launches": host_launches, "graph_launches": graph_launches,
                 **{f"{name.lower()}_launches": fn.launches - state["k"][name]
                    for name, fn in counted.items()},
                 "loop_closed": eng.loop_stats["accepted"] > state["loops"],
@@ -204,12 +213,16 @@ def profile_engine(args) -> None:
           f"{ENGINE_CAPACITY}; frames {args.warmup}..{args.warmup + args.frames - 1} traced one "
           f"by one; loop_stats {json.dumps(eng.loop_stats)}", flush=True)
     for r in rows:
-        print(f"frame {r['frame']}: wall {r['wall_ms']:.3f} ms, {r['kernel_launches']} kernel "
-              f"launches (K1 {r['k1_launches']}, K2 {r['k2_launches']}, K3 {r['k3_launches']}), "
+        print(f"frame {r['frame']}: wall {r['wall_ms']:.3f} ms, {r['kernel_launches']} kernels on "
+              f"the device, of them {r['host_kernel_launches']} launched by the host and the rest "
+              f"by {r['graph_launches']} graph replays (K1 {r['k1_launches']}, K2 "
+              f"{r['k2_launches']}, K3 {r['k3_launches']}), "
               f"device busy {r['device_busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}"
               f"{', loop closed' if r['loop_closed'] else ''}", flush=True)
         print("  host ms by stage: " + ", ".join(
-            f"{k} {v:.1f}" for k, v in r["stage_ms"].items()), flush=True)
+            f"{k} {v:.1f}" for k, v in r["stage_ms"].items())
+            + f"; the window solve is {r['stage_ms']['backend.window_solve'] / r['wall_ms']:.1%} "
+            "of the frame", flush=True)
         for name, ms, n in r["top"]:
             print(f"  {ms:9.3f} ms  {n:5d}x  {name}", flush=True)
     print(json.dumps({"card": smi, "mode": "engine", "loop": args.loop,

@@ -6,7 +6,11 @@ rebuilt and re-optimized each frame; failure detection resets
 biases/velocity (:489-522, 1351-1371). ``backend_step`` rolls the window,
 preintegrates the frame's IMU batch, takes the new odometry edge's
 information from the registration fitness (K3 inside
-``factors/infomat``), rebuilds the factors and runs the window LM.
+``factors/infomat``), rebuilds the factors and runs the window LM. On the
+card the Engine hands it ``BackendGraphs``: the preintegration and the
+window solve's outer iteration then replay CUDA graphs (the solve's
+captured at Engine construction, the preintegration's for each IMU buffer
+length on its first frame), and the CPU runs the same functions eagerly.
 Reference quirks kept: initial biases set to the noise densities with
 bg/ba swapped (:180-186), the ego velocity rotated by the PRE-optimize
 attitude each rebuild (:432), the previous frame's floor coefficients as
@@ -120,13 +124,33 @@ def init_state(cfg: BackendConfig, imu_cfg: ImuConfig, cloud_capacity: int,
     )
 
 
+def bias_information(imu_cfg: ImuConfig) -> tuple[float, float]:
+    """The bias random-walk factors' information (gyro, accel)."""
+    return (1.0 / imu_cfg.gyr_noise**2, 1.0 / imu_cfg.acc_noise**2)
+
+
+class BackendGraphs:
+    """The backend's fixed-shape pieces as CUDA graphs (card only): the
+    window solve for ``cfg.window_size`` slots, ``dtype`` and
+    ``cfg.use_schur``, captured here, and the IMU preintegration, captured
+    for each buffer length the first time it comes. A capture failure
+    raises."""
+
+    def __init__(self, cfg: BackendConfig, imu_cfg: ImuConfig, dtype, device):
+        self.preintegrate = pre.GraphedPreintegrate(imu_cfg.gyr_noise, imu_cfg.acc_noise, dtype, device)
+        self.solve = win.GraphedSolver(
+            cfg, bias_information(imu_cfg), cfg.window_size, dtype, device, cfg.use_schur
+        )
+
+
 def _push(a: torch.Tensor, new) -> torch.Tensor:
     """Roll the window by one and put ``new`` in the last slot."""
     return torch.cat([a[1:], torch.as_tensor(new, dtype=a.dtype, device=a.device)[None]])
 
 
 def backend_step(state: BackendState, frame: BackendFrame, cfg: BackendConfig,
-                 imu_cfg: ImuConfig) -> tuple[BackendState, BackendOutput]:
+                 imu_cfg: ImuConfig, graphs: BackendGraphs | None = None,
+                 ) -> tuple[BackendState, BackendOutput]:
     dtype = state.odom_p.dtype
     dev = state.odom_p.device
     W = cfg.window_size
@@ -134,11 +158,12 @@ def backend_step(state: BackendState, frame: BackendFrame, cfg: BackendConfig,
 
     # --- preintegrate with the last optimized biases (nodelet:347-372)
     last = [a[-1] for a in state.nav.astuple()]  # R, p, v, bg, ba
+    imu = (frame.imu_dts, frame.imu_acc, frame.imu_gyr, frame.imu_mask, last[3], last[4])
     with record_function("backend.preintegrate"):
-        p_int = pre.preintegrate(
-            frame.imu_dts, frame.imu_acc, frame.imu_gyr, frame.imu_mask,
-            last[3], last[4], imu_cfg.gyr_noise, imu_cfg.acc_noise,
-        )
+        if graphs is None:
+            p_int = pre.preintegrate(*imu, imu_cfg.gyr_noise, imu_cfg.acc_noise)
+        else:
+            p_int = graphs.preintegrate(*imu)
     eye9 = torch.eye(9, dtype=dtype, device=dev)
     preint_info = torch.linalg.inv_ex(p_int.cov + 1e-10 * eye9)[0] * cfg.inertial_weight
 
@@ -210,9 +235,13 @@ def backend_step(state: BackendState, frame: BackendFrame, cfg: BackendConfig,
         plane_info=torch.full((W,), 1.0 / FLOOR_EDGE_STDDEV, dtype=dtype, device=dev),
         plane_valid=st.floor_valid,
     )
-    bias_info = (1.0 / imu_cfg.gyr_noise**2, 1.0 / imu_cfg.acc_noise**2)
     with record_function("backend.window_solve"):
-        nav_opt, chi2, iters = win.solve_window(st.nav, factors, cfg, bias_info, use_schur=cfg.use_schur)
+        if graphs is None:
+            nav_opt, chi2, iters = win.solve_window(
+                st.nav, factors, cfg, bias_information(imu_cfg), use_schur=cfg.use_schur
+            )
+        else:
+            nav_opt, chi2, iters = graphs.solve(st.nav, factors)
 
     # --- failure detection + resets (nodelet:489-522, 1351-1371)
     bad = (

@@ -1,0 +1,76 @@
+"""Fixed-shape pieces of the engine as CUDA graphs (card only).
+
+The reference runs its per-frame backend as one compiled XLA program. The
+port's counterpart on the card is a CUDA graph: a function of fixed-shape
+tensors is captured once, and every frame copies its inputs into the
+graph's static input tensors and replays it, with no host work per kernel.
+The CPU runs the same functions eagerly (the tests do), so a graph replays
+exactly what the CPU path computes.
+
+A capture that fails raises: there is no eager fallback on the card.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+
+@contextlib.contextmanager
+def cusolver():
+    """Pin torch.linalg to cuSOLVER. The small factorizations of the window
+    solve (Cholesky, LU) may otherwise take a MAGMA path that synchronizes
+    with the host, which a capture refuses; cuSOLVER's do not."""
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+
+
+class Graphed:
+    """``fn(*inputs)`` captured as one CUDA graph over the given static input
+    tensors (kept as they are, so several graphs may share them).
+
+    ``load`` copies new values into the inputs, ``replay`` runs the graph and
+    returns ``fn``'s outputs, whose tensors are the graph's own: each replay
+    overwrites them. ``fn`` may also write into its inputs in place (a
+    loop's carry). ``replays`` counts the replays."""
+
+    WARMUP = 2
+
+    def __init__(self, name: str, fn, inputs: list[torch.Tensor]):
+        if not inputs or any(t.device.type != "cuda" for t in inputs):
+            raise ValueError(f"{name}: a CUDA graph needs CUDA input tensors")
+        self.name = name
+        self.inputs = inputs
+        self.replays = 0
+        dev = inputs[0].device
+        try:
+            with torch.cuda.device(dev), cusolver():
+                # warm-up on a side stream, so that lazy initializations
+                # (cuBLAS/cuSOLVER handles, workspaces) happen outside the capture
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side):
+                    for _ in range(self.WARMUP):
+                        fn(*inputs)
+                torch.cuda.current_stream(dev).wait_stream(side)
+                self.graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(self.graph):
+                    self.outputs = fn(*inputs)
+        except Exception as e:
+            raise RuntimeError(f"CUDA graph capture of {name} failed: {e}") from e
+
+    def load(self, *values) -> None:
+        if len(values) != len(self.inputs):
+            raise ValueError(f"{self.name}: {len(values)} inputs for {len(self.inputs)} static inputs")
+        for dst, src in zip(self.inputs, values):
+            dst.copy_(src)
+
+    def replay(self):
+        self.graph.replay()
+        self.replays += 1
+        return self.outputs

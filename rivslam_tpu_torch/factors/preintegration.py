@@ -4,10 +4,12 @@
 Everything that depends only on the measurements and the fixed start
 biases is computed for all samples at once; the true recurrences (the
 delta state, the bias Jacobians, the 9x9 covariance in 3x3 blocks) run as a
-host loop over the buffer. The reference scans all K samples and keeps the
-state unchanged (``jnp.where``) at a masked one; the loop here visits only
-the valid samples, which leaves the state bitwise what the masked steps
-would, and reads the mask on the host once per call.
+loop over the fixed IMU capacity K, the counterpart of the reference's
+``lax.scan``: a masked sample keeps the state bitwise unchanged
+(``torch.where``), as the reference's does. The host reads nothing, so the
+whole call has one fixed shape per K: on the card the engine captures it
+as a CUDA graph the first time it sees a buffer of K samples
+(``GraphedPreintegrate``) and replays that graph for every later one.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import dataclasses
 
 import torch
 
-from rivslam_tpu_torch.core import lie
+from rivslam_tpu_torch.core import cuda_graph, lie
 from rivslam_tpu_torch.core.navstate import GRAVITY, NavState
 
 
@@ -89,7 +91,7 @@ def preintegrate(
     Q_theta = ng2 * dts[:, None, None] ** 2 * torch.einsum("kij,klj->kil", rightJ, rightJ)
 
     p = dataclasses.replace(Preintegration.identity(dts.dtype, dts.device), bg=bg, ba=ba)
-    for k in torch.nonzero(mask).flatten().tolist():
+    for k in range(K):
         dt = dts[k]
         dR_k, rJ, ah, am, Qth = deltaR[k], rightJ[k], acc_hat[k], acc_m[k], Q_theta[k]
         dt2 = dt * dt
@@ -130,7 +132,7 @@ def preintegrate(
         ], dim=0)
 
         dRah = dR @ ah
-        p = Preintegration(
+        p_new = Preintegration(
             dt=p.dt + dt,
             dR=dR @ dR_k,
             dv=dv_new,
@@ -144,7 +146,45 @@ def preintegrate(
             bg=p.bg,
             ba=p.ba,
         )
+        p = Preintegration(*(torch.where(mask[k], a, b) for a, b in zip(p_new.astuple(), p.astuple())))
     return p
+
+
+class GraphedPreintegrate:
+    """``preintegrate`` on the card as CUDA graphs, one per IMU buffer
+    length: the whole masked loop over K samples is captured the first time
+    a buffer of K samples comes, and every call copies the frame's buffers
+    into that graph's static inputs and replays it."""
+
+    def __init__(self, noise_gyro: float, noise_acc: float, dtype, device):
+        self.noise = (noise_gyro, noise_acc)
+        self.dtype, self.device = dtype, device
+        self._graphs: dict[int, cuda_graph.Graphed] = {}
+
+    @property
+    def replays(self) -> int:
+        return sum(g.replays for g in self._graphs.values())
+
+    def _capture(self, capacity: int) -> cuda_graph.Graphed:
+        kw = dict(dtype=self.dtype, device=self.device)
+        inputs = [
+            torch.full((capacity,), 0.005, **kw), torch.zeros((capacity, 3), **kw),
+            torch.zeros((capacity, 3), **kw), torch.ones(capacity, dtype=torch.bool, device=self.device),
+            torch.zeros(3, **kw), torch.zeros(3, **kw),
+        ]
+        return cuda_graph.Graphed(
+            f"preintegrate[{capacity}]",
+            lambda *a: preintegrate(*a, *self.noise).astuple(),
+            inputs,
+        )
+
+    def __call__(self, dts, acc, gyr, mask, bg, ba) -> Preintegration:
+        K = dts.shape[0]
+        if K not in self._graphs:
+            self._graphs[K] = self._capture(K)
+        graph = self._graphs[K]
+        graph.load(dts, acc, gyr, mask, bg, ba)
+        return Preintegration(*(t.clone() for t in graph.replay()))
 
 
 def delta_rotation(p: Preintegration, bg: torch.Tensor) -> torch.Tensor:
@@ -160,9 +200,17 @@ def delta_position(p: Preintegration, bg: torch.Tensor, ba: torch.Tensor) -> tor
     return p.dp + mv(p.dP_dbg, bg - p.bg) + mv(p.dP_dba, ba - p.ba)
 
 
+def gravity_vector(gravity: float, dtype, device) -> torch.Tensor:
+    """[0, 0, gravity], filled on the device: a tensor built from a list, or
+    an item assignment, would copy from the host, which a CUDA graph
+    capture refuses."""
+    return torch.cat([torch.zeros(2, dtype=dtype, device=device),
+                      torch.full((1,), gravity, dtype=dtype, device=device)])
+
+
 def predict(start: NavState, p: Preintegration, gravity: float = GRAVITY) -> NavState:
     """Propagate a NavState through the preintegrated delta (cpp:83-95)."""
-    g = torch.tensor([0.0, 0.0, gravity], dtype=start.p.dtype, device=start.p.device)
+    g = gravity_vector(gravity, start.p.dtype, start.p.device)
     R = start.R @ p.dR
     v = mv(start.R, p.dv) + start.v - g * p.dt
     pos = mv(start.R, p.dp) + start.p + start.v * p.dt - 0.5 * g * p.dt * p.dt

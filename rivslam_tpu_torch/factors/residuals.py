@@ -46,7 +46,7 @@ def imu_preintegration(
     R1, p1, v1, bg1, ba1, R2, p2, v2, p_int: pre.Preintegration, gravity: float = GRAVITY
 ) -> torch.Tensor:
     """EdgeSE3Interial (edge_se3_interial.hpp:44-68), 9-dim (er, ev, ep)."""
-    g = torch.tensor([0.0, 0.0, gravity], dtype=p1.dtype, device=p1.device)
+    g = pre.gravity_vector(gravity, p1.dtype, p1.device)
     dt = p_int.dt[..., None]
     dR = pre.delta_rotation(p_int, bg1)
     dv = pre.delta_velocity(p_int, bg1, ba1)

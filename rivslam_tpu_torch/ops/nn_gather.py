@@ -16,11 +16,18 @@ target, averaged over exact ties, zeros where there is none.
 - ``fused_gather_plain`` is that twin: plain torch with K1's semantics, the
   same distance arithmetic and tiles of 1024 targets.
 - ``build`` compiles the kernel on first use (``ops/cuda_build.py``).
+
+The kernel is built in two block shapes, both bitwise equal to the twin on
+d2 and on one- and two-way ties. ``fused_gather`` launches
+``variant_for(B, N)``: 128 threads of two queries (the A/B's winner at
+B=256) wherever that grid still gives every SM a block, else 64 threads of
+one query (its winner at the engine's B=1, four times the blocks).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import os
 
 import torch
@@ -36,6 +43,30 @@ BUILD_DIR = cuda_build.BUILD_DIR
 _build: cuda_build.Build | None = None
 
 
+@dataclasses.dataclass(frozen=True)
+class Variant:
+    threads: int  # threads per block
+    qpt: int  # queries per thread
+
+    @property
+    def name(self) -> str:
+        return f"{self.threads}x{self.qpt}"
+
+
+BATCH_VARIANT = Variant(128, 2)
+SINGLE_VARIANT = Variant(64, 1)
+
+
+def variant_for(B: int, N: int, device=None) -> Variant:
+    """The variant the port launches for B problems of N queries: 128
+    threads of two queries when that grid still gives every SM of the card
+    a block, else 64 threads of one (four times the blocks; the engine's
+    single problem)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks = B * -(-N // (BATCH_VARIANT.threads * BATCH_VARIANT.qpt))
+    return BATCH_VARIANT if blocks >= sms else SINGLE_VARIANT
+
+
 def library_path() -> str:
     """Where the library for the current source and flags lives."""
     return cuda_build.library_path(SOURCE)
@@ -43,7 +74,7 @@ def library_path() -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.rivslam_nn_gather_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
@@ -81,19 +112,28 @@ def fused_gather(
     ref_mask: torch.Tensor,
     feats_t: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K1 on CUDA tensors, its plain twin on CPU tensors. See the module doc."""
-    B, N, M, F = _check(query, ref, ref_mask, feats_t)
+    """K1 on CUDA tensors, its plain twin on CPU tensors. See the module
+    doc."""
+    B, N, _, _ = _check(query, ref, ref_mask, feats_t)
     if query.device.type == "cpu":
         return fused_gather_plain(query, ref, ref_mask, feats_t)
     if query.device.type != "cuda":
         raise ValueError(f"unsupported device {query.device}")
+    return _launch(query, ref, ref_mask, feats_t, variant_for(B, N, query.device))
+
+
+def _launch(query, ref, ref_mask, feats_t, variant: Variant):
+    """Launch K1's ``variant`` block shape on CUDA tensors (``fused_gather``
+    picks it; the card's A/B and tests name it)."""
+    B, N, M, F = _check(query, ref, ref_mask, feats_t)
     cuda_build.check_launch(B, {"query": query, "ref": ref, "feats_t": feats_t},
                             {"ref_mask": ref_mask})
     d2 = torch.empty((B, N), dtype=torch.float32, device=query.device)
     g = torch.empty((B, F, N), dtype=torch.float32, device=query.device)
     cuda_build.launch(
         build().lib.rivslam_nn_gather_f32, query.device, query.data_ptr(), ref.data_ptr(),
-        ref_mask.data_ptr(), feats_t.data_ptr(), d2.data_ptr(), g.data_ptr(), B, N, M, F,
+        ref_mask.data_ptr(), feats_t.data_ptr(), d2.data_ptr(), g.data_ptr(),
+        B, N, M, F, variant.threads, variant.qpt,
     )
     fused_gather.launches += 1
     return d2, g
@@ -117,6 +157,13 @@ def fused_gather_plain(
     operation order (each product and sum rounded on its own), so the two
     agree bitwise on d2 and on which targets win.
     """
+    best, g, cnt = _plain_scan(query, ref, ref_mask, feats_t)
+    return best, g / torch.clamp_min(cnt, 1.0)[:, None]
+
+
+def _plain_scan(query, ref, ref_mask, feats_t):
+    """The twin's tile loop: (minimum d2, summed tie features, tie count:
+    how many valid targets sit at the minimum, 0 where there is none)."""
     _check(query, ref, ref_mask, feats_t)
     B, N, _ = query.shape
     F = feats_t.shape[1]
@@ -143,4 +190,4 @@ def fused_gather_plain(
         g = torch.where(lt[:, None], gt, g + torch.where(tie[:, None], gt, 0.0))
         cnt = torch.where(lt, ct, cnt + torch.where(tie, ct, 0.0))
         best = torch.minimum(best, tmin)
-    return best, g / torch.clamp_min(cnt, 1.0)[:, None]
+    return best, g, cnt

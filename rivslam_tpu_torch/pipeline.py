@@ -12,7 +12,10 @@ floor detection with its fallback chain and under-floor removal, covariance
 prepare, ``odometry.step`` (K1 inside the fast registration when
 ``use_pallas_correspondence`` is on, K2 inside the exact one) and
 ``slam.backend_step`` (K3 inside the edge-information fitness). On the card
-every stage runs on the device; the host reads a few flags per frame.
+every stage runs on the device; the backend's window solve replays CUDA
+graphs captured at construction and its IMU preintegration one captured for
+each buffer length on its first frame, and the host reads a few flags per
+frame. The CPU runs the same code eagerly.
 
 Per keyframe (``_on_keyframe``, synchronous): the keyframe joins the global
 graph with its odometry edge (its information from a K3 fitness pass),
@@ -170,6 +173,12 @@ class Engine:
         self._uniforms_fn = uniforms
         self.state = EngineState()
         self.timers = StageTimers()
+        # on the card the backend's fixed-shape pieces replay CUDA graphs;
+        # the CPU runs them eagerly
+        self.graphs = (
+            slam.BackendGraphs(cfg.backend, cfg.imu, dtype, self.device)
+            if self.device.type == "cuda" else None
+        )
         # loop-pipeline outcome counts, as the reference's
         self.loop_stats = {
             "detections_run": 0,        # keyframes that entered detection
@@ -264,7 +273,7 @@ class Engine:
             floor=fl.coeffs, floor_valid=fl.found,
         )
         with record_function("engine.backend"):
-            st.backend, bout = slam.backend_step(st.backend, frame, c.backend, c.imu)
+            st.backend, bout = slam.backend_step(st.backend, frame, c.backend, c.imu, self.graphs)
         return cl, ego, fl, dynamic_mask, oout, odom_pose, bout
 
     def process_frame(self, cloud: RadarCloud, stamp: float, imu_dts, imu_acc, imu_gyr,

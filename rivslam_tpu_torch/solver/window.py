@@ -10,12 +10,20 @@ so the Jacobian of slot i's 33-dim residual stack is a [33, 30] block:
 tridiagonal. Robust kernels are IRLS weights frozen at each linearization,
 as g2o scales by rho'.
 
-The reference runs the solve as nested ``lax.while_loop``s. Here they are
-host loops capped at the config's limits: the outer LM loop at
-``max_solver_iterations``, the inner lambda search at 8 tries. Each inner
-try and each outer iteration reads one flag from the device; the LM
+The reference runs the solve as nested ``lax.while_loop``s. Here one outer
+iteration (``window_iteration``) is a fixed-shape function of a carry
+(state, lambda, done): the linearization, then always ``INNER_TRIES`` tries
+of the lambda search, each masked by a done flag that freezes the carry
+bitwise once a try is accepted or the step falls below 1e-8, as the
+reference's inner loop stops there. A carry that enters done leaves
+unchanged too. The host runs outer iterations up to
+``max_solver_iterations`` and reads one flag per iteration. The LM
 bookkeeping (lambda, nu, the accept test, the convergence test) follows the
-reference's order.
+reference's order, and so does GN's.
+
+On the card the engine replays one outer iteration as a CUDA graph
+(``GraphedSolver``), captured once for the window, dtype, configuration and
+``use_schur``; the CPU runs ``solve_window`` eagerly.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ import dataclasses
 
 import torch
 
-from rivslam_tpu_torch.core import lie
+from rivslam_tpu_torch.core import cuda_graph, lie
 from rivslam_tpu_torch.core.config import BackendConfig
 from rivslam_tpu_torch.factors import preintegration as pre
 from rivslam_tpu_torch.factors import residuals, robust
@@ -288,6 +296,98 @@ def _select(c: torch.Tensor, a: WindowState, b: WindowState) -> WindowState:
     return WindowState(*(torch.where(c, u, v) for u, v in zip(a.astuple(), b.astuple())))
 
 
+def _rel_tol(dtype) -> float:
+    """Relative chi2 gain below this, or a step below STEP_TOL, converges."""
+    return 1e-5 if dtype == torch.float32 else 1e-9
+
+
+def chi2_of(x: WindowState, f: WindowFactors, cfg: BackendConfig, bias_info, cache, kw=None):
+    r, _ = residual_vector(x, f, cfg, bias_info, kw, cache=cache)
+    return torch.sum(r * r)
+
+
+def initial_carry(x0: WindowState, cfg: BackendConfig) -> tuple:
+    """(R, p, v, bg, ba, lam, done) before the first outer iteration: LM's
+    lambda starts unset (-1, set from H at the first linearization), GN's
+    damping at 0."""
+    lam = torch.full((), 0.0 if cfg.optimizer == "GN" else -1.0, dtype=x0.p.dtype, device=x0.p.device)
+    return (*x0.astuple(), lam, torch.zeros((), dtype=torch.bool, device=x0.p.device))
+
+
+def window_iteration(carry: tuple, f: WindowFactors, cfg: BackendConfig, bias_info, cache,
+                     use_schur: bool = False) -> tuple:
+    """One outer LM (or GN) iteration of the reference's ``while_loop``
+    body, with no host read: returns the next carry (R, p, v, bg, ba, lam,
+    done). A carry that enters done comes out bitwise unchanged."""
+    *xs, lam_in, done_in = carry
+    x = WindowState(*xs)
+    W = x.window
+    dtype = x.p.dtype
+    REL_TOL = _rel_tol(dtype)
+    _, kw = residual_vector(x, f, cfg, bias_info, cache=cache)
+    H, g, y0 = linearize_blocks(x, f, cfg, bias_info, kw, cache=cache)
+
+    def step(lam):
+        if use_schur:
+            return _schur_solve(H, g, lam, W, dtype)
+        return _damped_solve(H + lam * torch.eye(W * 15, dtype=dtype, device=H.device), -g)
+
+    if cfg.optimizer == "GN":
+        # one (near-)undamped step per linearization; a rejected step
+        # escalates the damping 100x and retries, up to LAM_MAX
+        LAM_MAX = 1e6
+        lam = lam_in
+        eps = torch.clamp_min(lam, 1e-8) * torch.clamp_min(torch.max(torch.abs(torch.diagonal(H))), 1.0)
+        d = step(eps)
+        x_new = retract(x, d.reshape(W, 15))
+        y1 = chi2_of(x_new, f, cfg, bias_info, cache, kw)
+        accept = y1 < y0
+        x_next = _select(accept, x_new, x)
+        converged = (
+            (accept & (torch.abs(y0 - y1) < REL_TOL * torch.clamp_min(y0, 1.0)))
+            | (accept & (torch.max(torch.abs(d)) < STEP_TOL))
+            | (~accept & (lam >= LAM_MAX))
+        )
+        lam_next = torch.where(accept, torch.clamp_min(lam / 10.0, 0.0), torch.clamp_min(lam, 1e-8) * 100.0)
+        done_next = converged
+    else:
+        lam = torch.where(lam_in < 0, 1e-5 * torch.max(torch.abs(torch.diagonal(H))), lam_in)
+        x_i, nu = x, torch.full((), 2.0, dtype=dtype, device=H.device)
+        idone = torch.zeros((), dtype=torch.bool, device=H.device)
+        success = torch.zeros((), dtype=torch.bool, device=H.device)
+        dmax = torch.full((), torch.inf, dtype=dtype, device=H.device)
+        y_new = y0
+        for _ in range(INNER_TRIES):
+            # every try runs; one past done changes nothing (the reference's
+            # inner while_loop stops at an accepted or vanishing step)
+            d = step(lam)
+            x_new = retract(x, d.reshape(W, 15))
+            y1 = chi2_of(x_new, f, cfg, bias_info, cache, kw)
+            denom = torch.dot(d, lam * d - g)
+            rho = (y0 - y1) / torch.where(torch.abs(denom) < 1e-30, 1e-30, denom)
+            accept = (rho > 0) & (y1 < y0)
+            live = ~idone
+            take = live & accept
+            lam_new = torch.where(
+                accept,
+                lam * torch.clamp_min(1.0 - (2.0 * rho - 1.0) ** 3, 1.0 / 3.0),
+                lam * nu,
+            )
+            lam = torch.where(live, lam_new, lam)
+            x_i = _select(take, x_new, x_i)
+            nu = torch.where(live & ~accept, 2.0 * nu, nu)
+            success = torch.where(live, accept, success)
+            dmax = torch.where(take, torch.max(torch.abs(d)), dmax)
+            y_new = torch.where(take, y1, y_new)
+            idone = idone | accept | (torch.linalg.norm(d) < 1e-8)
+        converged = success & (
+            (torch.abs(y0 - y_new) < REL_TOL * torch.clamp_min(y0, 1.0)) | (dmax < STEP_TOL)
+        )
+        x_next, lam_next, done_next = x_i, lam, converged | ~success
+    out = _select(done_in, x, x_next).astuple()
+    return (*out, torch.where(done_in, lam_in, lam_next), done_in | done_next)
+
+
 def solve_window(
     x0: WindowState,
     f: WindowFactors,
@@ -295,89 +395,117 @@ def solve_window(
     bias_info: tuple[float, float],
     use_schur: bool = False,
 ) -> tuple[WindowState, torch.Tensor, int]:
-    """LM (or GN) to convergence within the iteration cap. Returns (state,
-    chi2, iterations)."""
-    W = x0.window
-    dim = W * 15
-    dtype = x0.p.dtype
-    dev = x0.p.device
-    eye = torch.eye(dim, dtype=dtype, device=dev)
-    cache = whiten_cache(f, bias_info, W, dtype)
-    # relative chi2 gain below REL_TOL, or a step below STEP_TOL, converges
-    REL_TOL = 1e-5 if dtype == torch.float32 else 1e-9
-
-    def chi2_of(x, kw=None):
-        r, _ = residual_vector(x, f, cfg, bias_info, kw, cache=cache)
-        return torch.sum(r * r)
-
-    def linearize(x):
-        _, kw = residual_vector(x, f, cfg, bias_info, cache=cache)
-        H, g, y0 = linearize_blocks(x, f, cfg, bias_info, kw, cache=cache)
-        return H, g, y0, kw
-
-    def step(H, g, lam):
-        if use_schur:
-            return _schur_solve(H, g, lam, W, dtype)
-        return _damped_solve(H + lam * eye, -g)
-
-    x = x0
+    """LM (or GN) to convergence within the iteration cap, eagerly. Returns
+    (state, chi2, iterations)."""
+    cache = whiten_cache(f, bias_info, x0.window, x0.p.dtype)
+    carry = initial_carry(x0, cfg)
     it = 0
-    if cfg.optimizer == "GN":
-        # one (near-)undamped step per linearization; a rejected step
-        # escalates the damping 100x and retries, up to LAM_MAX
-        LAM_MAX = 1e6
-        lam = torch.zeros((), dtype=dtype, device=dev)
-        while it < cfg.max_solver_iterations:
-            H, g, y0, kw = linearize(x)
-            eps = torch.clamp_min(lam, 1e-8) * torch.clamp_min(torch.max(torch.abs(torch.diagonal(H))), 1.0)
-            d = step(H, g, eps)
-            x_new = retract(x, d.reshape(W, 15))
-            y1 = chi2_of(x_new, kw)
-            accept = y1 < y0
-            x = _select(accept, x_new, x)
-            converged = (
-                (accept & (torch.abs(y0 - y1) < REL_TOL * torch.clamp_min(y0, 1.0)))
-                | (accept & (torch.max(torch.abs(d)) < STEP_TOL))
-                | (~accept & (lam >= LAM_MAX))
-            )
-            lam = torch.where(accept, torch.clamp_min(lam / 10.0, 0.0), torch.clamp_min(lam, 1e-8) * 100.0)
-            it += 1
-            if bool(converged):
-                break
-        return x, chi2_of(x), it
-
-    lam = torch.full((), -1.0, dtype=dtype, device=dev)
     while it < cfg.max_solver_iterations:
-        H, g, y0, kw = linearize(x)
-        lam = torch.where(lam < 0, 1e-5 * torch.max(torch.abs(torch.diagonal(H))), lam)
-        x_i, nu = x, torch.full((), 2.0, dtype=dtype, device=dev)
-        success = torch.zeros((), dtype=torch.bool, device=dev)
-        dmax = torch.full((), torch.inf, dtype=dtype, device=dev)
-        y_new = y0
-        for _ in range(INNER_TRIES):
-            d = step(H, g, lam)
-            x_new = retract(x, d.reshape(W, 15))
-            y1 = chi2_of(x_new, kw)
-            denom = torch.dot(d, lam * d - g)
-            rho = (y0 - y1) / torch.where(torch.abs(denom) < 1e-30, 1e-30, denom)
-            accept = (rho > 0) & (y1 < y0)
-            lam = torch.where(
-                accept,
-                lam * torch.clamp_min(1.0 - (2.0 * rho - 1.0) ** 3, 1.0 / 3.0),
-                lam * nu,
-            )
-            x_i = _select(accept, x_new, x_i)
-            nu = torch.where(accept, nu, 2.0 * nu)
-            success = accept
-            dmax = torch.where(accept, torch.max(torch.abs(d)), dmax)
-            y_new = torch.where(accept, y1, y_new)
-            if bool(accept | (torch.linalg.norm(d) < 1e-8)):
-                break
-        x = x_i
-        converged = success & (
-            (torch.abs(y0 - y_new) < REL_TOL * torch.clamp_min(y0, 1.0)) | (dmax < STEP_TOL)
-        )
+        carry = window_iteration(carry, f, cfg, bias_info, cache, use_schur)
         it += 1
-        if bool(converged | ~success):
+        if bool(carry[-1]):  # one host read per outer iteration
             break
-    return x, chi2_of(x), it
+    x = WindowState(*carry[:5])
+    return x, chi2_of(x, f, cfg, bias_info, cache), it
+
+
+def _factor_fields(f: WindowFactors) -> list[torch.Tensor]:
+    out = []
+    for fld in dataclasses.fields(f):
+        v = getattr(f, fld.name)
+        out.extend(v.astuple() if isinstance(v, pre.Preintegration) else [v])
+    return out
+
+
+def _factors_from(fields: list[torch.Tensor]) -> WindowFactors:
+    names = [fld.name for fld in dataclasses.fields(WindowFactors)]
+    n_pre = len(dataclasses.fields(pre.Preintegration))
+    k = names.index("preint")
+    vals = fields[:k] + [pre.Preintegration(*fields[k:k + n_pre])] + fields[k + n_pre:]
+    return WindowFactors(**dict(zip(names, vals)))
+
+
+def _placeholder(window: int, dtype, device) -> tuple[WindowState, WindowFactors]:
+    """A well-posed window of the given shape (identity poses, unit
+    information) for the capture's warm-up; its values are never used."""
+    kw = dict(dtype=dtype, device=device)
+    W = window
+
+    def eye(n):
+        return torch.eye(n, **kw).expand(W, n, n).clone()
+
+    def zeros(*shape):
+        return torch.zeros((W,) + shape, **kw)
+
+    p_id = pre.Preintegration.identity(dtype, device)
+    preint = pre.Preintegration(*(a.expand((W,) + a.shape).clone() for a in p_id.astuple()))
+    f = WindowFactors(
+        frame_mask=torch.ones(W, dtype=torch.bool, device=device),
+        rel_R=eye(3), rel_p=zeros(3), rel_info=eye(6), prior_R=eye(3), prior_p=zeros(3),
+        prior_info=eye(6), preint=preint, preint_info=eye(9), vel_meas=zeros(3),
+        vel_info=torch.ones((W, 3), **kw),
+        plane_node=torch.tensor([0.0, 0.0, 1.0, 0.0], **kw).expand(W, 4).clone(),
+        plane_meas=torch.tensor([0.0, 0.0, 1.0, 0.0], **kw).expand(W, 4).clone(),
+        plane_info=torch.ones(W, **kw), plane_valid=torch.ones(W, dtype=torch.bool, device=device),
+    )
+    x = WindowState(R=eye(3), p=zeros(3), v=zeros(3), bg=zeros(3), ba=zeros(3))
+    return x, f
+
+
+class GraphedSolver:
+    """``solve_window`` on the card for one fixed window, dtype,
+    configuration and ``use_schur``, as two CUDA graphs over shared static
+    inputs (the carry, the factors and their whitening cache), captured at
+    construction: one outer iteration (``window_iteration``: the
+    linearization with ``jacfwd`` under ``vmap`` and the INNER_TRIES masked
+    tries), which writes its next carry back into its inputs, and the final
+    chi2. A solve copies x0, the factors and the cache into the inputs,
+    replays the iteration until its done flag reads true (one host read per
+    iteration, at most ``max_solver_iterations``), then replays the chi2."""
+
+    def __init__(self, cfg: BackendConfig, bias_info, window: int, dtype, device,
+                 use_schur: bool = False):
+        self.cfg, self.bias_info, self.window, self.use_schur = cfg, bias_info, window, use_schur
+        x0, f0 = _placeholder(window, dtype, device)
+        cache0 = whiten_cache(f0, bias_info, window, dtype)
+        self._n_fac = len(_factor_fields(f0))
+        inputs = [t.clone() for t in (*initial_carry(x0, cfg), *_factor_fields(f0), *cache0)]
+        self._carry = inputs[:7]
+
+        def unpack(args):
+            carry = args[:7]
+            f = _factors_from(list(args[7:7 + self._n_fac]))
+            return carry, f, tuple(args[7 + self._n_fac:])
+
+        def iteration(*args):
+            carry, f, cache = unpack(args)
+            new = window_iteration(carry, f, cfg, bias_info, cache, use_schur)
+            for dst, src in zip(carry, new):
+                dst.copy_(src)
+            return ()
+
+        def final_chi2(*args):
+            carry, f, cache = unpack(args)
+            return (chi2_of(WindowState(*carry[:5]), f, cfg, bias_info, cache),)
+
+        self._iteration = cuda_graph.Graphed("window_iteration", iteration, inputs)
+        self._chi2 = cuda_graph.Graphed("window_chi2", final_chi2, inputs)
+
+    @property
+    def replays(self) -> int:
+        return self._iteration.replays + self._chi2.replays
+
+    def __call__(self, x0: WindowState, f: WindowFactors) -> tuple[WindowState, torch.Tensor, int]:
+        if x0.window != self.window:
+            raise ValueError(f"window of {x0.window} slots, but the graph was captured for {self.window}")
+        cache = whiten_cache(f, self.bias_info, self.window, x0.p.dtype)
+        self._iteration.load(*initial_carry(x0, self.cfg), *_factor_fields(f), *cache)
+        done = self._carry[-1]
+        it = 0
+        while it < self.cfg.max_solver_iterations:
+            self._iteration.replay()
+            it += 1
+            if bool(done):  # one host read per outer iteration
+                break
+        (chi2,) = self._chi2.replay()
+        return WindowState(*(t.clone() for t in self._carry[:5])), chi2.clone(), it

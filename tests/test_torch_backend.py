@@ -98,6 +98,45 @@ def test_preintegrate_matches_reference(kind, atol):
     assert got.dR.dtype == tdt
 
 
+@pytest.mark.parametrize("gaps", ["gaps", "empty", "tail-only"])
+def test_fixed_capacity_preintegration_matches_reference(gaps):
+    """The loop over the fixed capacity K: masked samples leave the state
+    bitwise unchanged, so gaps anywhere, and an empty mask, give what the
+    reference's masked lax.scan gives (float64)."""
+    valid = np.ones(24, bool)
+    if gaps == "gaps":
+        valid[[1, 2, 9, 15, 16, 17, 23]] = False
+    elif gaps == "empty":
+        valid[:] = False
+    else:
+        valid[:20] = False
+    dts, acc, gyr, mask = _imu(5, K=24, valid=valid)
+    bg, ba = np.array([0.003, 0.01, -0.02]), np.array([-0.05, 0.02, 0.1])
+    args = (dts, acc, gyr, mask, bg, ba)
+    want = ref_pre.preintegrate(*(jnp.asarray(a, jnp.float64 if a.dtype != bool else None) for a in args),
+                                1e-3, 1e-2)
+    got = preintegration.preintegrate(*(T(a, torch.float64 if a.dtype != bool else None) for a in args),
+                                      1e-3, 1e-2)
+    for f in dataclasses.fields(want):
+        w = np.asarray(getattr(want, f.name))
+        close(getattr(got, f.name), w, 1e-10 * max(1.0, np.abs(w).max()))
+    if gaps == "empty":
+        ident = preintegration.Preintegration.identity(torch.float64)
+        for name in ("dt", "dR", "dv", "dp", "cov"):
+            assert torch.equal(getattr(got, name), getattr(ident, name))
+    # the valid samples alone, packed at the front, give the same state bitwise
+    k = int(mask.sum())
+    packed = [np.concatenate([a[mask], np.zeros((24 - k,) + a.shape[1:])]) for a in (dts, acc, gyr)]
+    pmask = np.arange(24) < k
+    got2 = preintegration.preintegrate(*(T(a, torch.float64) for a in packed), T(pmask),
+                                       T(bg, torch.float64), T(ba, torch.float64), 1e-3, 1e-2)
+    if k:
+        # the midpoint partner of a sample after a gap is the last valid one
+        # before it in both layouts, so the packed run is the same recurrence
+        for a, b in zip(got.astuple(), got2.astuple()):
+            assert torch.equal(a, b)
+
+
 def test_predict_and_bias_corrected_deltas_match_reference():
     dts, acc, gyr, mask = _imu(3)
     z = np.zeros(3)
@@ -276,6 +315,32 @@ def test_solve_window_masked_frames(problem):
     assert it == int(it_w)
     close(x.p, xw.p, 1e-8)
     close(chi2, chi2_w, 0.0, rtol=1e-7)
+
+
+@pytest.mark.parametrize("optimizer", ["LM", "GN"])
+def test_masked_iterations_past_convergence_change_nothing(problem, optimizer):
+    """With a larger iteration cap, iterations after the solve converged
+    (the carry's done flag set) leave the state, lambda and the flag
+    bitwise unchanged; so do the inner tries after an accepted step, since
+    the solve matches the reference's while_loop above."""
+    _, _, px0, pf = problem
+    cfg = dataclasses.replace(config.BackendConfig(), optimizer=optimizer, max_solver_iterations=40)
+    cache = window.whiten_cache(pf, BIAS_INFO, px0.window, px0.p.dtype)
+    x, chi2, it = window.solve_window(px0, pf, cfg, BIAS_INFO)
+    assert it < cfg.max_solver_iterations
+    carry = window.initial_carry(px0, cfg)
+    for _ in range(it):
+        carry = window.window_iteration(carry, pf, cfg, BIAS_INFO, cache)
+    assert bool(carry[-1])
+    for a, b in zip(carry[:5], x.astuple()):
+        assert torch.equal(a, b)
+    more = carry
+    for _ in range(3):
+        more = window.window_iteration(more, pf, cfg, BIAS_INFO, cache)
+    for a, b in zip(more, carry):
+        assert torch.equal(a, b)
+    # the final chi2 is the one solve_window reports
+    assert float(window.chi2_of(window.WindowState(*more[:5]), pf, cfg, BIAS_INFO, cache)) == float(chi2)
 
 
 # ---- backend_step over a few frames ---------------------------------------------

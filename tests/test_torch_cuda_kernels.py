@@ -97,6 +97,135 @@ def test_k1_counts_launches_and_rejects_what_it_cannot_take(dev):
     assert nn_gather.fused_gather.launches == before + 1
 
 
+# ---- K1: both block shapes, ties resolved by a warp in index order -----------
+
+
+def _k1_contract(q, r, m, f):
+    """K1's contract in numpy float32: the twin's distance, operation by
+    operation (each rounded on its own), and the tie mean summed in ascending
+    index order, then divided. Returns (d2, g, tie counts)."""
+    q, r, m, f = (a.cpu().numpy() for a in (q, r, m, f))
+    B, N, M, F = q.shape[0], q.shape[1], r.shape[1], f.shape[1]
+    d2 = np.full((B, N), np.float32(1e30), np.float32)
+    g = np.zeros((B, F, N), np.float32)
+    cnt = np.zeros((B, N), np.int64)
+    for b in range(B):
+        qx, qy, qz = (q[b, :, k, None] for k in range(3))
+        rx, ry, rz = (r[b, None, :, k] for k in range(3))
+        qn = qx * qx + qy * qy + qz * qz
+        rn = rx * rx + ry * ry + rz * rz
+        d = (qn + rn) - np.float32(2.0) * (qx * rx + qy * ry + qz * rz)
+        d = np.where(m[b][None], d, np.float32(np.inf))
+        best = d.min(axis=1)
+        for i in np.nonzero(best < np.float32(5e29))[0]:
+            js = np.nonzero(d[i] == best[i])[0]
+            acc = np.zeros(F, np.float32)
+            for j in js:  # ascending index order
+                acc = acc + f[b, :, j]
+            d2[b, i], g[b, :, i], cnt[b, i] = best[i], acc / np.float32(len(js)), len(js)
+    return d2, g, cnt
+
+
+def _tie_sum_tolerance(q, r, m, f):
+    """[B, F, N]: how far K1's features may lie from the twin's: zero for
+    one winner or a tie of two; for a tie of n >= 3, n - 1 ulps of the sum
+    of the tied features' magnitudes (each order rounds n - 1 additions by
+    up to half an ulp), over n, plus an ulp of the mean."""
+    _, abs_sum, cnt = nn_gather._plain_scan(q, r, m, f.abs())
+    _, g_sum, _ = nn_gather._plain_scan(q, r, m, f)
+    n = torch.clamp_min(cnt, 1.0)[:, None]
+
+    def ulp(x):
+        return torch.nextafter(x, torch.full_like(x, torch.inf)) - x
+
+    tol = (n - 1.0) * ulp(abs_sum) / n + ulp((g_sum / n).abs())
+    return torch.where((cnt >= 3)[:, None], tol, 0.0)
+
+
+def _assert_k1_contract(args, variant):
+    """The block shape equals the contract bitwise (d2 and features), and
+    the twin bitwise on d2 and on one- and two-way ties. The twin sums a
+    tile's ties in its equality bmm's order, which the library chooses, so
+    ties of n >= 3 are held to it within _tie_sum_tolerance."""
+    d2, g = nn_gather._launch(*args, variant)
+    pd2, pg = nn_gather.fused_gather_plain(*args)
+    tol = _tie_sum_tolerance(*args)
+    torch.cuda.synchronize()
+    cd2, cg, cnt = _k1_contract(*args)
+    d2, g, pd2, pg, tol = (a.cpu().numpy() for a in (d2, g, pd2, pg, tol))
+    np.testing.assert_array_equal(d2, cd2)
+    np.testing.assert_array_equal(g, cg)
+    np.testing.assert_array_equal(d2, pd2)
+    few = np.broadcast_to((cnt <= 2)[:, None, :], g.shape)
+    np.testing.assert_array_equal(g[few], pg[few])
+    assert np.all(np.abs(g - pg) <= tol)
+    return d2, g, cnt
+
+
+VARIANTS = (nn_gather.BATCH_VARIANT, nn_gather.SINGLE_VARIANT)
+VARIANT_IDS = [v.name for v in VARIANTS]
+
+
+@pytest.mark.parametrize("variant", VARIANTS, ids=VARIANT_IDS)
+def test_k1_variant_ties_of_three_or_more_in_index_order(dev, variant):
+    q, r, m, f = _inputs(dev, 2, 200, 1100, keep=1.1)
+    r[:, 300:340] = r[:, :40]  # targets 0..39 appear 4 times, 40..79 3 times
+    r[:, 600:640] = r[:, :40]
+    r[:, 500:540] = r[:, 40:80]
+    r[:, 900:980] = r[:, :80]
+    q[:, :80] = r[:, :80]
+    d2, g, cnt = _assert_k1_contract((q, r, m, f), variant)
+    assert (cnt[:, :40] == 4).all() and (cnt[:, 40:80] == 3).all()
+
+
+@pytest.mark.parametrize("variant", VARIANTS, ids=VARIANT_IDS)
+def test_k1_variant_ties_across_the_tile_edge(dev, variant):
+    q, r, m, f = _inputs(dev, 2, 300, 1300, keep=1.1)
+    r[:, 512:612] = r[:, 412:512]  # each pair straddles the 512-target tile edge
+    q[:, :100] = r[:, 412:512]
+    m[1, 430] = False  # a masked duplicate never ties
+    d2, g, cnt = _assert_k1_contract((q, r, m, f), variant)
+    assert (cnt[0, :100] == 2).all() and cnt[1, 18] == 1
+
+
+@pytest.mark.parametrize("variant", VARIANTS, ids=VARIANT_IDS)
+def test_k1_variant_many_tied_queries_in_one_warp(dev, variant):
+    q, r, m, f = _inputs(dev, 3, 256, 1024, F=9, keep=1.1)
+    r[:, 700:764] = r[:, 0:64]
+    q[:, 64:128] = r[:, 0:64]  # two full warps of tied queries
+    q[:, 200:232] = r[:, 5, None]  # one warp all on the same tied target
+    _, _, cnt = _assert_k1_contract((q, r, m, f), variant)
+    assert (cnt[:, 64:128] == 2).all() and (cnt[:, 200:232] == 2).all()
+
+
+@pytest.mark.parametrize("variant", VARIANTS, ids=VARIANT_IDS)
+def test_k1_variant_fully_masked_and_wide_features(dev, variant):
+    q, r, m, f = _inputs(dev, 3, 130, 600, F=40)
+    m[0] = False
+    r[2, 100:110] = r[2, :10]
+    q[2, :10] = r[2, :10]
+    d2, g, _ = _assert_k1_contract((q, r, m, f), variant)
+    assert (d2[0] >= 1e30).all() and (g[0] == 0).all()
+
+
+def test_k1_variants_agree_on_the_main_path_inputs(dev):
+    *data, _ = synthetic.load_pairs(16, 1024, device=dev)
+    tgt = apdgicp.prepare(data[2], data[3], RegistrationConfig(), device=dev)
+    from rivslam_tpu_torch.core.pointcloud import SENTINEL
+    ref = torch.where(tgt.mask[..., None], tgt.xyz, SENTINEL).contiguous()
+    c = tgt.cov
+    f = torch.stack(list(tgt.xyz.unbind(-1)) + [c[..., 0, 0], c[..., 0, 1], c[..., 0, 2],
+                                               c[..., 1, 1], c[..., 1, 2], c[..., 2, 2]], 1)
+    args = (data[0].contiguous(), ref, tgt.mask.contiguous(), f.contiguous())
+    first = nn_gather.fused_gather(*args)
+    for v in VARIANTS:
+        d2, g = nn_gather._launch(*args, v)
+        assert torch.equal(d2, first[0]) and torch.equal(g, first[1]), v.name
+    _assert_k1_contract(args, nn_gather.variant_for(16, 1024, dev))
+    assert nn_gather.variant_for(256, 1024, dev) == nn_gather.BATCH_VARIANT
+    assert nn_gather.variant_for(1, 1024, dev) == nn_gather.SINGLE_VARIANT
+
+
 def test_main_path_runs_through_k1(dev):
     *data, rel = synthetic.load_pairs(8, 1024, device=dev)
     guess = torch.eye(4, device=dev).expand(8, 4, 4)
@@ -287,3 +416,117 @@ def test_engine_with_loop_closure_and_exact_path(dev):
     assert eng.state.kf_count == sum(o["is_keyframe"] for o in outs)
     ts, poses = eng.trajectory()
     assert poses.shape == (4, 4, 4) and np.isfinite(poses).all()
+
+
+# ---- the backend's CUDA graphs ----------------------------------------------------
+
+
+def _backend_frames(n_frames=5, cap=192, imu_cap=48):
+    """Frames along the simulator's circle (numpy, the port's simulator):
+    noisy odometry poses, a scan, analytic IMU samples, ego velocity, floor."""
+    from rivslam_tpu_torch.core import lie
+
+    rng = np.random.default_rng(11)
+    world = synthetic.make_world(rng, n_points=4000)
+    times, poses, vels = synthetic.circular_trajectory(n_frames, dt=0.25, height=2.0)
+    frames = []
+    for i in range(n_frames):
+        cl = synthetic.observe(world, poses[i], rng, capacity=cap, noise=0.01, device="cpu")
+        rel = np.linalg.inv(poses[0]) @ poses[i]
+        odom = rel @ lie.se3_exp(torch.as_tensor(rng.normal(size=6) * 0.01)).numpy()
+        dts, acc, gyr, m = np.zeros(imu_cap), np.zeros((imu_cap, 3)), np.zeros((imu_cap, 3)), np.zeros(imu_cap, bool)
+        if i > 0:
+            d, a, g = synthetic.circular_imu_samples(times[i - 1], times[i], rate=100.0)
+            k = len(d)
+            dts[:k], acc[:k], gyr[:k], m[:k] = d, a, g, True
+            m[3] = False  # a gap in the buffer
+        frames.append(dict(
+            stamp=np.asarray(times[i]), odom_R=odom[:3, :3], odom_p=odom[:3, 3],
+            xyz=np.asarray(cl.xyz), mask=np.asarray(cl.mask), ego_vel=poses[i][:3, :3].T @ vels[i],
+            ego_vel_cov=np.full(3, 1e-3), imu_dts=dts, imu_acc=acc, imu_gyr=gyr, imu_mask=m,
+            floor=np.array([0.0, 0.0, 1.0, 2.0]) + rng.normal(size=4) * 1e-3,
+            floor_valid=np.asarray(i % 3 != 1),
+        ))
+    return frames
+
+
+@pytest.mark.parametrize("optimizer,use_schur", [("LM", False), ("LM", True), ("GN", False)],
+                         ids=["LM-dense", "LM-schur", "GN-dense"])
+def test_graphed_backend_equals_its_eager_run(dev, optimizer, use_schur):
+    """Several frames of changing factors through backend_step: the CUDA
+    graphs (preintegration, window iteration, final chi2) give bitwise what
+    the same functions give eagerly on the card, so the static buffers are
+    refreshed every frame."""
+    from rivslam_tpu_torch.backend import slam
+    from rivslam_tpu_torch.core import config, cuda_graph
+
+    bk = dataclasses.replace(config.BackendConfig(), optimizer=optimizer, use_schur=use_schur)
+    imu = config.ImuConfig()
+    graphs = slam.BackendGraphs(bk, imu, torch.float32, dev)
+    st_g = st_e = slam.init_state(bk, imu, 192, torch.float32, dev)
+    iters = []
+    for fr in _backend_frames():
+        frame = slam.BackendFrame(**{
+            k: torch.as_tensor(v, dtype=torch.bool if v.dtype == bool else torch.float32, device=dev)
+            for k, v in fr.items()})
+        st_g, out_g = slam.backend_step(st_g, frame, bk, imu, graphs)
+        with cuda_graph.cusolver():
+            st_e, out_e = slam.backend_step(st_e, frame, bk, imu)
+        assert out_g.iterations == out_e.iterations
+        iters.append(out_g.iterations)
+        for a, b in ((out_g.pose, out_e.pose), (out_g.chi2, out_e.chi2)):
+            assert torch.equal(a, b)
+        for a, b in zip(st_g.nav.astuple() + st_g.preint.astuple(), st_e.nav.astuple() + st_e.preint.astuple()):
+            assert torch.equal(a, b)
+    assert graphs.solve.replays >= sum(iters) and max(iters) >= 2
+
+
+def test_graphed_preintegration_equals_eager(dev):
+    """Frames of changing IMU buffers replay bitwise what the eager function
+    gives; a buffer of another length gets a graph of its own."""
+    from rivslam_tpu_torch.factors import preintegration as pre
+
+    g = pre.GraphedPreintegrate(1e-3, 1e-2, torch.float32, dev)
+    rng = np.random.default_rng(3)
+    for frame, K in enumerate((40, 40, 40, 40, 20, 20, 40)):
+        mask = rng.uniform(size=K) < 0.8
+        mask[K - 10 + frame:] = False
+        args = [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (
+            rng.uniform(0.004, 0.006, K), rng.normal(size=(K, 3)) * 0.3 + [0, 0, 9.8],
+            rng.normal(size=(K, 3)) * 0.2)]
+        args += [torch.as_tensor(mask, device=dev)]
+        args += [torch.as_tensor(rng.normal(size=3) * 0.01, dtype=torch.float32, device=dev) for _ in range(2)]
+        got = g(*args)
+        want = pre.preintegrate(*args, 1e-3, 1e-2)
+        for a, b in zip(got.astuple(), want.astuple()):
+            assert torch.equal(a, b)
+    assert sorted(g._graphs) == [20, 40] and g.replays == 7
+
+
+def test_engine_replays_graphs_and_counts_its_kernels(dev):
+    """The Engine on the card runs its backend through the graphs; the K3
+    launches stay outside them, so their count is exact."""
+    seq, _ = synthetic.simulate_sequence(seed=21, radius=8.0, omega=0.25, dt=0.25, n_frames=3,
+                                         capacity=1024, world_points=20000, extent=30.0)
+    cfg = presets.get("cp")
+    cfg = dataclasses.replace(cfg, loop=dataclasses.replace(cfg.loop, enable=False))
+    eng = pipeline.Engine(cfg, device=dev)
+    k3 = nn_argmin.nearest_neighbor.launches
+    outs = datasets.replay(eng, seq, 1024, 64)
+    assert eng.graphs.preintegrate.replays == 3
+    assert eng.graphs.solve.replays >= 3
+    n_kf = sum(o["is_keyframe"] for o in outs)
+    assert nn_argmin.nearest_neighbor.launches - k3 == 3 + n_kf - 1
+
+
+def test_a_failed_capture_raises(dev):
+    """A host read inside a captured function fails the capture, and the
+    failure raises: there is no eager fallback."""
+    from rivslam_tpu_torch.core import cuda_graph
+
+    x = torch.ones(4, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA graph capture of host-read failed"):
+        cuda_graph.Graphed("host-read", lambda t: (t * float(t.sum().item()),), [x])
+    torch.cuda.synchronize()
+    y = torch.ones(4, device=dev) * 2  # the device still works after the failed capture
+    assert float(y.sum()) == 8.0

@@ -20,9 +20,10 @@ small on the CPU. One loop closes, at frame 64.
 Run as a script (``PYTHONPATH=. python tests/test_torch_engine_loop.py``),
 it prints the JAX engine's figures on chip_smoke.py's two loop-closing
 engine runs over the "cp" validation course (120 frames at capacity 1024,
-float32 on the CPU, simulator seed 21, engine seed 0): full-trajectory ATE
-(loop-corrected), keyframes and loops closed. chip_smoke.py holds the
-port's card runs to them.
+float32 on the CPU, simulator seed 21): full-trajectory ATE (loop-corrected
+and the window backend's own), keyframes and loops closed, for engine seeds
+0, 1 and 2 of the preset run and seed 0 of the exact run. chip_smoke.py
+holds the port's card runs to them.
 """
 
 import dataclasses
@@ -167,12 +168,12 @@ def exact_cfg_reference():
     return build_course_cfg("cp", reg_overrides={"use_fast_path": False})
 
 
-def reference_course(cfg) -> dict:
-    """The JAX engine over the cp course under ``cfg``."""
+def reference_course(cfg, seed: int = ENGINE_SEED) -> dict:
+    """The JAX engine over the cp course under ``cfg``, engine seed ``seed``."""
     from rivslam_tpu.eval.validation import COURSES
 
     seq, _ = ref_syn.simulate_sequence(seed=21, **COURSES["cp"])
-    eng = ref_pipeline.Engine(cfg, dtype=jnp.float32, seed=ENGINE_SEED)
+    eng = ref_pipeline.Engine(cfg, dtype=jnp.float32, seed=seed)
     outs = ref_datasets.replay(eng, seq, capacity=1024, imu_capacity=64)
     eng.finalize()
     gt = np.linalg.inv(seq.gt_poses[0]) @ seq.gt_poses
@@ -188,5 +189,7 @@ def reference_course(cfg) -> dict:
 
 if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
-    print(json.dumps({"preset": reference_course(preset_cfg(ref_presets))}), flush=True)
-    print(json.dumps({"exact": reference_course(exact_cfg_reference())}), flush=True)
+    for seed in (0, 1, 2):
+        print(json.dumps({"preset": reference_course(preset_cfg(ref_presets), seed), "seed": seed}),
+              flush=True)
+    print(json.dumps({"exact": reference_course(exact_cfg_reference()), "seed": ENGINE_SEED}), flush=True)
