@@ -24,6 +24,9 @@ Phases, each announced by a flushed "== phase" line:
   7. K2       the kernel against its plain twin on the card: the exact
               path's own inputs (F = 12), B=256 at full width, ragged,
               masked, exact ties across the 512-ref tile edge, F=1 and 128;
+              split_for's choice at B=256 and B=1, and every split S =
+              1..8 on the engine's shape with ties across the slice
+              boundaries at F = 12, 9 and 128, bitwise;
   8. exact    the exact scan match (use_fast_path=False) on the same B=256
               pairs for FAST_APDGICP (KNN and RBF covariances), GICP and
               ICP, K2 launches read around each; convergence, error, and a
@@ -34,13 +37,17 @@ Phases, each announced by a flushed "== phase" line:
               backend's own (uncorrected) ATE, each held to 1.5x the JAX
               engine's for the same seed; keyframes, loops closed,
               loop_stats, per-frame latency, peak memory, K1/K2/K3 launches
-              and the backend's CUDA graph replays; then the first 8 frames
-              of the loop-off path on the card against the CPU;
+              (counted through the graph replays), the CUDA graph replays
+              (preintegration, window solve, registration) and the
+              registration's host reads; then the first 8 frames of the
+              loop-off path on the card against the CPU;
  10. engine   the same course through the exact registration
      exact    (validation.build_course_cfg("cp", use_fast_path=False)): K2
-              launches, ATE held to 1.5x the JAX engine's, loops closed;
+              launches, graph replays and host reads, ATE held to 1.5x the
+              JAX engine's, loops closed;
  11. K3       the kernel against its plain twin on the card: the engine's
-              fitness inputs, B=256, ragged, masked and exact-tie cases;
+              fitness inputs, B=256, ragged, masked and exact-tie cases,
+              every split S = 1..8 with ties across the slice boundaries;
               K2 and K1 on the exact and the preset engine's last
               correspondence step;
  12. timing   K1, K2 and K3 per launch on the same inputs: the scan-match
@@ -48,17 +55,21 @@ Phases, each announced by a flushed "== phase" line:
               registration shape (B=1, N=M=1024); K2 at the exact engine's
               shape and K3 at the engine's fitness inputs; the plain twins,
               the library compositions and the bounds; the A/B of K1's
-              two block shapes at B=256 and B=1, in turns.
+              two block shapes at B=256 and B=1, in turns; K2 and K3 on the
+              engine's inputs at every split S, beside the floor (an empty
+              kernel on the same clustered grid), in a CUDA graph.
 
 Any failed check raises, and the script then exits non-zero without a
-result. The line before the last is a JSON object listing the kernels; the
-last line is {"ok": true, "device": {...}}. It needs a CUDA device and the
+result. The line before the last is a JSON object listing the kernels, each
+at the engine's shape (B=1) and at B=256; the last line is
+{"ok": true, "device": {...}}. It needs a CUDA device and the
 repository beside it: there is no CPU fallback.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -294,9 +305,14 @@ def sass_scan_loops(lib_path: str) -> dict | None:
     return report
 
 
-def compare_k3(name, nn_argmin, q, r, m):
-    """K3 against its plain twin: d2 bitwise, idx equal. Returns max|d2 err|."""
-    idx, d2 = nn_argmin.nearest_neighbor(q, r, m)
+def compare_k3(name, nn_argmin, q, r, m, splits=None):
+    """K3 (with the refs in ``splits`` slices; default the wrapper's choice)
+    against its plain twin: d2 bitwise, idx equal. Returns max|d2 err|."""
+    if splits is None:
+        idx, d2 = nn_argmin.nearest_neighbor(q, r, m)
+    else:
+        idx, d2 = nn_argmin._launch(q, r, m, splits)
+        name = f"{name}, S={splits}"
     pidx, pd2 = nn_argmin.nearest_neighbor_plain(q, r, m)
     torch.cuda.synchronize()
     err = (d2 - pd2).abs().max().item()
@@ -335,9 +351,14 @@ def k3_cases(nn_argmin, dev):
     return max(errs)
 
 
-def compare_k2(name, nn_corr, q, r, m, f):
-    """K2 against its plain twin: idx and g equal, d2 bitwise. Returns max|err|."""
-    idx, d2, g = nn_corr.fused_correspondence(q, r, m, f)
+def compare_k2(name, nn_corr, q, r, m, f, splits=None):
+    """K2 (with the refs in ``splits`` slices; default the wrapper's choice)
+    against its plain twin: idx and g equal, d2 bitwise. Returns max|err|."""
+    if splits is None:
+        idx, d2, g = nn_corr.fused_correspondence(q, r, m, f)
+    else:
+        idx, d2, g = nn_corr._launch(q, r, m, f, splits)
+        name = f"{name}, S={splits}"
     pidx, pd2, pg = nn_corr.fused_correspondence_plain(q, r, m, f)
     torch.cuda.synchronize()
     err = max((d2 - pd2).abs().max().item(), (g - pg).abs().max().item())
@@ -398,6 +419,60 @@ def k2_cases(nn_corr, dev):
     return max(errs)
 
 
+def split_inputs(dev, splits, F=12, seed=12, keep=0.3, N=1024, M=1024):
+    """The engine's shape (B=1, N=M=1024, about 30% of the refs valid, as the
+    engine's clouds) with exact ties on either side of every boundary of
+    ``splits`` slices (block s scans the valid refs of rank [s V / S,
+    (s + 1) V / S)): the last valid ref of each slice is copied onto the
+    first of the next, and query s sits on it (the earlier index must win);
+    a masked ref below each copy sits on query s too (it must never win).
+    Returns the inputs and the (query, winner) pairs."""
+    rng = np.random.default_rng(seed + splits)
+    r = rng.normal(size=(1, M, 3)) * 10
+    m = rng.uniform(size=(1, M)) < keep
+    q = rng.normal(size=(1, N, 3)) * 10
+    valid = np.flatnonzero(m[0])
+    ties = []
+    for s_ in range(1, splits):
+        lo, hi = valid[len(valid) * s_ // splits - 1], valid[len(valid) * s_ // splits]
+        r[0, hi] = r[0, lo]
+        q[0, s_] = r[0, lo]
+        r[0, np.flatnonzero(~m[0, :lo])[-1]] = r[0, lo]
+        ties.append((s_, lo))
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=dev)
+    f = t(rng.normal(size=(1, M, F)))
+    return (t(q), t(r), t(m, torch.bool), f), ties
+
+
+def k3_split_cases(nn_argmin, dev):
+    """K3 at every split S = 1..MAX_SPLIT on the engine's shape with ties
+    across the slice boundaries, bitwise against its twin."""
+    errs = []
+    for S in range(1, nn_argmin.MAX_SPLIT + 1):
+        (q, r, m, _), ties = split_inputs(dev, S)
+        err, idx, _ = compare_k3("engine shape, ties across slices", nn_argmin, q, r, m, S)
+        check(all(int(idx[0, qi]) == lo for qi, lo in ties),
+              f"K3 S={S}: a tie across a slice boundary did not go to the earlier index")
+        errs.append(err)
+    return max(errs)
+
+
+def k2_split_cases(nn_corr, nn_argmin, dev):
+    """K2 at every split S = 1..MAX_SPLIT on the engine's shape with ties
+    across the slice boundaries, F = 12 (the exact path's), 9 and 128,
+    bitwise against its twin."""
+    errs = []
+    for S in range(1, nn_argmin.MAX_SPLIT + 1):
+        for F in (12, 9, 128):
+            (q, r, m, f), ties = split_inputs(dev, S, F=F)
+            err, idx, _, g = compare_k2(f"engine shape, ties across slices, F={F}", nn_corr,
+                                        q, r, m, f, S)
+            check(all(int(idx[0, qi]) == lo and torch.equal(g[0, qi], f[0, lo]) for qi, lo in ties),
+                  f"K2 S={S}: a tie across a slice boundary did not go to the earlier index")
+            errs.append(err)
+    return max(errs)
+
+
 def loop_off_cfg(presets):
     """The loop-off engine configuration: the "cp" preset, loop closure
     off, K1 on (the card-vs-CPU check and ``profile_torch.py --engine``)."""
@@ -449,7 +524,7 @@ def main() -> None:
     from rivslam_tpu_torch.core import lie
     from rivslam_tpu_torch.eval import ate
     from rivslam_tpu_torch.io import datasets, synthetic
-    from rivslam_tpu_torch.ops import nn_argmin, nn_corr, nn_gather
+    from rivslam_tpu_torch.ops import cuda_build, nn_argmin, nn_corr, nn_gather
 
     dev = torch.device("cuda")
     counted = {"K1": nn_gather.fused_gather, "K2": nn_corr.fused_correspondence,
@@ -637,6 +712,10 @@ def main() -> None:
     tgt_x = apdgicp.prepare(tgt_xyz, tgt_mask, cfg_x, device=dev)
     k2_err = compare_k2("exact-path inputs (B=256)", nn_corr, *exact_corr_inputs(tgt_x, src_xyz))[0]
     k2_err = max(k2_err, k2_cases(nn_corr, dev))
+    splits = {b: nn_argmin.split_for(b, CAPACITY, dev) for b in (B, 1)}
+    say(f"split_for: S={splits[B]} at B={B}, S={splits[1]} at B=1 (N={CAPACITY}, {sms} SMs)")
+    check(splits[B] == 1 and splits[1] > 1, "split_for must not split at B=256 and must at B=1")
+    k2_err = max(k2_err, k2_split_cases(nn_corr, nn_argmin, dev))
 
     phase("8 exact scan match")
     exact_runs = {"FAST_APDGICP KNN": dict(method="FAST_APDGICP", covariance_method="KNN"),
@@ -685,11 +764,19 @@ def main() -> None:
     def drive_engine(key, cfg, seed=ENGINE_SEED):
         """One 120-frame run, the launch counts zeroed just before and read
         just after; checks the ATE, corrected and not, against the JAX
-        engine's for the same seed. The Engine captures the backend's CUDA
-        graphs at construction, before the counts are zeroed."""
+        engine's for the same seed. The Engine captures the window solve's
+        CUDA graphs at construction, before the counts are zeroed; the
+        preintegration's and the registration's on the first frames (a
+        capture leaves the launch counts as it found them, and each replay
+        adds its captured launches)."""
         eng = pipeline.Engine(cfg, seed=seed, device=dev)
-        graphs = eng.graphs
-        replays0 = {"preintegrate": graphs.preintegrate.replays, "window solve": graphs.solve.replays}
+        graphs, reg = eng.graphs, eng.reg_graphs
+
+        def graph_counts():
+            return {"preintegrate": graphs.preintegrate.replays, "window solve": graphs.solve.replays,
+                    "registration": reg.replays, "registration host reads": reg.reads}
+
+        replays0 = graph_counts()
         events, wall = [torch.cuda.Event(enable_timing=True)], []
 
         def tick(i, n):  # replay calls this after each frame; process_frame has synced
@@ -705,20 +792,20 @@ def main() -> None:
         outs = datasets.replay(eng, seq, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY, progress=tick)
         torch.cuda.synchronize()
         n = read_counts()
-        replays = {"preintegrate": graphs.preintegrate.replays - replays0["preintegrate"],
-                   "window solve": graphs.solve.replays - replays0["window solve"]}
+        replays = {k: v - replays0[k] for k, v in graph_counts().items()}
         engine_s = wall[-1] - wall[0]
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         wall_ms = np.diff(wall) * 1e3
         ev_ms = np.array([a.elapsed_time(b) for a, b in zip(events[:-1], events[1:])])
         ref = REF[key][seed]
-        ates = {}
+        ates, digest = {}, hashlib.sha256()
         for corrected in (True, False):
             ts, poses = eng.trajectory(corrected=corrected)
             check(poses.shape == (n_frames, 4, 4) and np.isfinite(poses).all(),
                   f"engine {key}: non-finite poses")
             g = gt[[int(np.argmin(np.abs(seq.gt_stamps - t))) for t in ts]]
             ates[corrected] = ate.ate(poses[:, :3, 3], g[:, :3, 3])["rmse"]
+            digest.update(np.ascontiguousarray(poses).tobytes())
         n_kf = sum(o["is_keyframe"] for o in outs)
         conv = float(np.mean([o["registration_ok"] for o in outs[1:]]))
         loops = eng.loop_stats["accepted"]
@@ -729,10 +816,12 @@ def main() -> None:
             f"{ates[False]:.4f} m uncorrected (JAX: {ref['uncorrected_ate_m']:.4f} m), limit "
             f"{MAX_ATE_RATIO}x; keyframes {n_kf} (JAX: {ref['keyframes']}); loops closed {loops} at "
             f"frames {loop_frames} (JAX: {ref['loops']}); converged share {conv:.4f}")
-        say(f"engine {key}: loop_stats {json.dumps(eng.loop_stats)}")
-        say(f"engine {key}: launches {n} (per frame: "
-            f"{ {k: round(v / n_frames, 3) for k, v in n.items()} }); CUDA graph replays {replays} "
-            f"(per frame: { {k: round(v / n_frames, 3) for k, v in replays.items()} })")
+        say(f"engine {key}: loop_stats {json.dumps(eng.loop_stats)}; sha256 of the corrected and "
+            f"uncorrected trajectories {digest.hexdigest()[:16]} (equal digests: bitwise equal runs)")
+        say(f"engine {key}: launches, counted through the graph replays {n} (per frame: "
+            f"{ {k: round(v / n_frames, 3) for k, v in n.items()} }); CUDA graph replays and the "
+            f"registration's host reads {replays} (per frame: "
+            f"{ {k: round(v / n_frames, 3) for k, v in replays.items()} })")
         for name, v in (("wall clock", wall_ms), ("CUDA events", ev_ms)):
             say(f"engine {key}: per-frame latency by {name} over frames 1..{n_frames - 1}: median "
                 f"{np.median(v[1:]):.3f} ms, p95 {np.percentile(v[1:], 95):.3f} ms, max "
@@ -796,7 +885,7 @@ def main() -> None:
     r3 = torch.where(bk.cloud_mask[-1][:, None], bk.xyz[-1], SENTINEL)[None].contiguous()
     m3 = bk.cloud_mask[-1][None].contiguous()
     k3_err = compare_k3("engine inputs", nn_argmin, q3, r3, m3)[0]
-    k3_err = max(k3_err, k3_cases(nn_argmin, dev))
+    k3_err = max(k3_err, k3_cases(nn_argmin, dev), k3_split_cases(nn_argmin, dev))
     # K2 on the exact engine's own last correspondence step: the odometry
     # keyframe as target, the last keyframe cloud as query
     xs = eng_x.state
@@ -838,13 +927,15 @@ def main() -> None:
         """One kernel on one input set: ms per launch, plain twin, library
         composition, the bound from this run's inputs. A single problem
         (B=1) is timed inside a CUDA graph: back-to-back host launches of a
-        ~10 us kernel would time the host. Its host-launched time is printed
-        beside it: the engine launches K1 and K2 from the host, so that is
-        what a launch costs there, and how B=1 was timed before graphs."""
+        ~10 us kernel would time the host. Its host-launched time, three
+        rounds, is printed beside it: the backend launches K3 from the host,
+        and loop verification K1 or K2 (the odometry replays them in its
+        graphs); host-launched times move 2-3x between calls."""
         Bq, Nq, Mq = q.shape[0], q.shape[1], r.shape[1]
         small = Bq == 1
         ms = time_ms(kernel, reps=reps, warmup=3, graph=small)
-        host = f"; host-launched {time_ms(kernel, reps=reps, warmup=3):.4f} ms/launch" if small else ""
+        host = ("; host-launched " + " / ".join(f"{time_ms(kernel, reps=reps, warmup=3):.4f}" for _ in range(3))
+                + " ms/launch" if small else "")
         pms = time_ms(plain, reps=5, graph=small)
         lms = time_ms(library, reps=reps, warmup=3, graph=small)
         pairs = Nq * int(m.sum().item())  # every query against every valid ref
@@ -908,22 +999,44 @@ def main() -> None:
             say(f"K1 A/B on {sname}: {v.name}{' (launched by the port)' if port else ''}: "
                 f"{t[0]:.4f} / {t[1]:.4f} ms, mean {np.mean(t):.4f} ms {card}")
 
+    # K2 and K3 on the engine's inputs at every split S, as device time in a
+    # CUDA graph, beside the floor: an empty kernel on the same grid and
+    # clusters in a graph
+    floor_lib = nn_argmin.build().lib
+    floors = {}
+    for S in range(1, nn_argmin.MAX_SPLIT + 1):
+        floors[S] = time_ms(lambda: cuda_build.launch(floor_lib.rivslam_nn_empty, dev, 1, CAPACITY, S),
+                            reps=200, warmup=3, graph=True)
+        k3_s = time_ms(lambda: nn_argmin._launch(q3, r3, m3, S), reps=200, warmup=3, graph=True)
+        k2_s = time_ms(lambda: nn_corr._launch(*k2_eng, S), reps=200, warmup=3, graph=True)
+        say(f"split S={S}{' (split_for at B=1)' if S == splits[1] else ''}: empty-kernel floor "
+            f"{floors[S]:.4f} ms; K3 {k3_s:.4f} ms; K2 {k2_s:.4f} ms (engine inputs, B=1, "
+            f"N=M={CAPACITY}, device time in a CUDA graph) {card}")
+
     say(f"launches per frame: preset engine K1 {eng_counts['K1'] / n_frames:.3f}, K3 "
         f"{eng_counts['K3'] / n_frames:.3f}; exact engine K2 {exact_counts['K2'] / n_frames:.3f}, "
         f"K3 {exact_counts['K3'] / n_frames:.3f}")
     torch.cuda.synchronize()
     say(f"wall time {time.perf_counter() - t_start:.1f} s")
 
+    # each kernel at the engine's shape (B=1) and at B=256 (the scan-match
+    # pairs); launches: the kernel's count over its engine run
+    batch = "scan-match pairs"
     kernels = [
-        {"name": "K1 fused_gather", "route": "cuda", "source": "rivslam_tpu_torch/csrc/nn_gather.cu",
-         "replaces": "rivslam_tpu/ops/pallas_nn.py:179", "launches": eng_counts["K1"],
-         "max_abs_err": k1_err, **k1},
-        {"name": "K2 fused_correspondence", "route": "cuda", "source": "rivslam_tpu_torch/csrc/nn_corr.cu",
-         "replaces": "rivslam_tpu/ops/pallas_nn.py:74", "launches": exact_counts["K2"],
-         "max_abs_err": k2_err, **k2},
-        {"name": "K3 nearest_neighbor", "route": "cuda", "source": "rivslam_tpu_torch/csrc/nn_argmin.cu",
-         "replaces": "rivslam_tpu/ops/pallas_nn.py:29", "launches": eng_counts["K3"],
-         "max_abs_err": k3_err, **k3},
+        {"name": f"K1 fused_gather ({shape})", "route": "cuda",
+         "source": "rivslam_tpu_torch/csrc/nn_gather.cu", "replaces": "rivslam_tpu/ops/pallas_nn.py:179",
+         "launches": eng_counts["K1"], "max_abs_err": k1_err, **t}
+        for shape, t in (("engine B=1", k1), ("B=256", timing[("K1", batch)]))
+    ] + [
+        {"name": f"K2 fused_correspondence ({shape})", "route": "cuda",
+         "source": "rivslam_tpu_torch/csrc/nn_corr.cu", "replaces": "rivslam_tpu/ops/pallas_nn.py:74",
+         "launches": exact_counts["K2"], "max_abs_err": k2_err, **t}
+        for shape, t in (("exact engine B=1", k2), ("B=256", timing[("K2", batch)]))
+    ] + [
+        {"name": f"K3 nearest_neighbor ({shape})", "route": "cuda",
+         "source": "rivslam_tpu_torch/csrc/nn_argmin.cu", "replaces": "rivslam_tpu/ops/pallas_nn.py:29",
+         "launches": eng_counts["K3"], "max_abs_err": k3_err, **t}
+        for shape, t in (("engine B=1", k3), ("B=256", timing[("K3", batch)]))
     ]
     say(smi)
     say(json.dumps({"kernels": kernels}))

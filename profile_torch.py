@@ -2,6 +2,8 @@
 
     python3 profile_torch.py [--cov KNN|RBF] [--k1 on|off]
     python3 profile_torch.py --engine [--loop] [--warmup 8] [--frames 4]
+    python3 profile_torch.py --kernels [--root DIR]
+    python3 profile_torch.py --digest [--root DIR]
 
 The default mode runs bench.py's protocol (B=256 frame pairs, capacity
 1024, target prepared once, identity guess) through rivslam_tpu_torch on one
@@ -19,10 +21,23 @@ wall time, the host time of each stage (the Engine's ``record_function``
 scopes, the keyframe graph's among them: ``engine.keyframe``,
 ``engine.loop_detection``, ``engine.global_solve``), the kernels run on the
 device, split into those the host launched one by one and those of the
-backend's CUDA graph replays (and K1/K2/K3 launches), whether a loop closed, device busy ms, idle share and
-the top device operations. On the cp course the first loop candidates come
+CUDA graph replays (and K1/K2/K3 launches), whether a loop closed, device busy ms, idle share and
+the top device operations. Kernel counts include the launches inside graph
+replays (the backend's and the odometry registration's); the registration's
+host reads (one per outer LM iteration) are counted too. On the cp course
+the first loop candidates come
 after ~100 frames (50 m of travel), so ``--loop --warmup 100 --frames 20``
 traces the loop closure.
+
+``--kernels`` times K1, K2 and K3 through the port's public wrappers on
+seeded inputs: B=256 random clouds (every target valid, F = 9 and 12; 90%
+valid, F = 9) by CUDA events, and the engine's shape (B=1, N=M=1024, 30%
+valid, F = 12) as device time in a CUDA graph. ``--digest`` runs the engine
+configurations of chip_smoke.py phases 9-10 (the cp preset for engine seeds
+0, 1 and 2, the exact path for seed 0) and prints the sha256 of each run's
+corrected and uncorrected trajectories, as chip_smoke.py does. With ``--root
+DIR`` both import the port from the checkout at DIR instead of this one: run
+two checkouts in one call, in turns (a, b, b, a), to compare them on one card.
 
 The last line is one JSON object with these numbers. Needs a CUDA device.
 """
@@ -50,20 +65,26 @@ def main() -> None:
     ap.add_argument("--loop", action="store_true", help="with --engine: loop closure on")
     ap.add_argument("--warmup", type=int, default=8)
     ap.add_argument("--frames", type=int, default=4)
+    ap.add_argument("--kernels", action="store_true", help="time K1-K3 through the wrappers")
+    ap.add_argument("--digest", action="store_true", help="digests of the engine runs' trajectories")
+    ap.add_argument("--root", help="with --kernels or --digest: import the port from this checkout")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch: no CUDA device")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
+    if args.kernels:
+        return time_kernels(args)
+    if args.digest:
+        return digest_engine(args)
     if args.engine:
         return profile_engine(args)
     from rivslam_tpu_torch.core.config import RegistrationConfig
     from rivslam_tpu_torch.frontend import apdgicp
     from rivslam_tpu_torch.io import synthetic
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = _smi()
     dev = torch.device("cuda")
     cfg = dataclasses.replace(
         RegistrationConfig(), covariance_method=args.cov,
@@ -152,10 +173,7 @@ def profile_engine(args) -> None:
     counted = {"K1": nn_gather.fused_gather, "K2": nn_corr.fused_correspondence,
                "K3": nn_argmin.nearest_neighbor}
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = _smi()
     # the first frames of chip_smoke.py's course: simulated at its full
     # length (its IMU noise stream depends on the frame count), then cut
     seq, _ = synthetic.simulate_sequence(**COURSE)
@@ -167,13 +185,14 @@ def profile_engine(args) -> None:
     )
     cfg = (preset_cfg if args.loop else loop_off_cfg)(presets)
     eng = pipeline.Engine(cfg, seed=ENGINE_SEED, device="cuda")
-    state = {"prof": None, "t0": 0.0, "k": {}, "loops": 0}
+    state = {"prof": None, "t0": 0.0, "k": {}, "loops": 0, "reads": 0}
     rows = []
 
     def start():
         state["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
         state["k"] = {name: fn.launches for name, fn in counted.items()}
         state["loops"] = eng.loop_stats["accepted"]
+        state["reads"] = eng.reg_graphs.reads
         state["prof"].start()
         state["t0"] = time.perf_counter()
 
@@ -200,6 +219,7 @@ def profile_engine(args) -> None:
                 "host_kernel_launches": host_launches, "graph_launches": graph_launches,
                 **{f"{name.lower()}_launches": fn.launches - state["k"][name]
                    for name, fn in counted.items()},
+                "registration_host_reads": eng.reg_graphs.reads - state["reads"],
                 "loop_closed": eng.loop_stats["accepted"] > state["loops"],
                 "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms, "stage_ms": stage_ms,
                 "top": [[name[:80], sum(t), len(t)] for name, t in top],
@@ -216,7 +236,8 @@ def profile_engine(args) -> None:
         print(f"frame {r['frame']}: wall {r['wall_ms']:.3f} ms, {r['kernel_launches']} kernels on "
               f"the device, of them {r['host_kernel_launches']} launched by the host and the rest "
               f"by {r['graph_launches']} graph replays (K1 {r['k1_launches']}, K2 "
-              f"{r['k2_launches']}, K3 {r['k3_launches']}), "
+              f"{r['k2_launches']}, K3 {r['k3_launches']}; registration host reads "
+              f"{r['registration_host_reads']}), "
               f"device busy {r['device_busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}"
               f"{', loop closed' if r['loop_closed'] else ''}", flush=True)
         print("  host ms by stage: " + ", ".join(
@@ -227,6 +248,92 @@ def profile_engine(args) -> None:
             print(f"  {ms:9.3f} ms  {n:5d}x  {name}", flush=True)
     print(json.dumps({"card": smi, "mode": "engine", "loop": args.loop,
                       "loop_stats": eng.loop_stats, "frames": rows}), flush=True)
+
+
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def time_kernels(args) -> None:
+    import numpy as np
+
+    import rivslam_tpu_torch
+    from rivslam_tpu_torch.ops import nn_argmin, nn_corr, nn_gather
+
+    root = os.path.dirname(rivslam_tpu_torch.__file__)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9)
+
+    def ms(fn, reps, graph):
+        fn()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if graph:
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                for _ in range(reps):
+                    fn()
+            g.replay()
+            torch.cuda.synchronize()
+            a.record()
+            g.replay()
+        else:
+            a.record()
+            for _ in range(reps):
+                fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps
+
+    rows = []
+    for B, keep, F in ((256, 1.0, 9), (256, 1.0, 12), (256, 0.9, 9), (1, 0.3, 12)):
+        t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=dev)
+        q, r = t(rng.normal(size=(B, 1024, 3)) * 10), t(rng.normal(size=(B, 1024, 3)) * 10)
+        m = t(rng.uniform(size=(B, 1024)) < keep, torch.bool)
+        f = t(rng.normal(size=(B, 1024, F)))
+        f_t = f.transpose(1, 2).contiguous()
+        graph, reps = B == 1, (200 if B == 1 else 20)
+        row = {"B": B, "valid": keep, "F": F}
+        for name, fn in (("K1", lambda: nn_gather.fused_gather(q, r, m, f_t)),
+                         ("K2", lambda: nn_corr.fused_correspondence(q, r, m, f)),
+                         ("K3", lambda: nn_argmin.nearest_neighbor(q, r, m))):
+            row[name] = [ms(fn, reps, graph) for _ in range(2)]
+        rows.append(row)
+        print(f"{_smi()}; port at {root}; B={B}, N=M=1024, {keep:.0%} valid, F={F}"
+              f"{', device time in a CUDA graph' if graph else ''}: "
+              + "; ".join(f"{k} {v[0]:.4f} / {v[1]:.4f} ms" for k, v in row.items() if k[0] == "K"),
+              flush=True)
+    print(json.dumps({"card": _smi(), "mode": "kernels", "port": root, "rows": rows}), flush=True)
+
+
+def digest_engine(args) -> None:
+    import hashlib
+
+    import numpy as np
+
+    import rivslam_tpu_torch
+    from chip_smoke import (COURSE, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY, ENGINE_SEEDS, exact_cfg,
+                            preset_cfg)
+    from rivslam_tpu_torch import pipeline, presets
+    from rivslam_tpu_torch.io import datasets, synthetic
+
+    root = os.path.dirname(rivslam_tpu_torch.__file__)
+    seq, _ = synthetic.simulate_sequence(**COURSE)
+    out = {}
+    for key, cfg, seeds in (("preset", preset_cfg(presets), ENGINE_SEEDS), ("exact", exact_cfg(presets), (0,))):
+        for seed in seeds:
+            eng = pipeline.Engine(cfg, seed=seed, device="cuda")
+            datasets.replay(eng, seq, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY)
+            h = hashlib.sha256()
+            for corrected in (True, False):
+                h.update(np.ascontiguousarray(eng.trajectory(corrected=corrected)[1]).tobytes())
+            out[f"{key} seed {seed}"] = h.hexdigest()[:16]
+            print(f"port at {root}: engine {key} seed {seed}: sha256 of the corrected and "
+                  f"uncorrected trajectories {out[f'{key} seed {seed}']}", flush=True)
+    print(json.dumps({"card": _smi(), "mode": "digest", "port": root, "digests": out}), flush=True)
 
 
 if __name__ == "__main__":

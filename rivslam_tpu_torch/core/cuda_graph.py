@@ -8,6 +8,11 @@ The CPU runs the same functions eagerly (the tests do), so a graph replays
 exactly what the CPU path computes.
 
 A capture that fails raises: there is no eager fallback on the card.
+
+The kernel wrappers (K1-K3) count their launches on the host, so a launch
+inside a graph is counted per replay: the launches a piece made while it
+was captured are credited to each wrapper at every replay, and the set-up
+(warm-up and capture) leaves the counts as it found them.
 """
 
 from __future__ import annotations
@@ -15,6 +20,11 @@ from __future__ import annotations
 import contextlib
 
 import torch
+
+from rivslam_tpu_torch.ops import nn_argmin, nn_corr, nn_gather
+
+# the wrappers whose ``launches`` a replay credits
+COUNTED = (nn_gather.fused_gather, nn_corr.fused_correspondence, nn_argmin.nearest_neighbor)
 
 
 @contextlib.contextmanager
@@ -37,7 +47,8 @@ class Graphed:
     ``load`` copies new values into the inputs, ``replay`` runs the graph and
     returns ``fn``'s outputs, whose tensors are the graph's own: each replay
     overwrites them. ``fn`` may also write into its inputs in place (a
-    loop's carry). ``replays`` counts the replays."""
+    loop's carry). ``replays`` counts the replays; ``launches`` holds the
+    kernel launches of one replay, by wrapper."""
 
     WARMUP = 2
 
@@ -48,6 +59,7 @@ class Graphed:
         self.inputs = inputs
         self.replays = 0
         dev = inputs[0].device
+        counts = [fn_.launches for fn_ in COUNTED]
         try:
             with torch.cuda.device(dev), cusolver():
                 # warm-up on a side stream, so that lazy initializations
@@ -59,10 +71,16 @@ class Graphed:
                         fn(*inputs)
                 torch.cuda.current_stream(dev).wait_stream(side)
                 self.graph = torch.cuda.CUDAGraph()
+                warm = [fn_.launches for fn_ in COUNTED]
                 with torch.cuda.graph(self.graph):
                     self.outputs = fn(*inputs)
+                captured = [fn_.launches - w for fn_, w in zip(COUNTED, warm)]
         except Exception as e:
             raise RuntimeError(f"CUDA graph capture of {name} failed: {e}") from e
+        finally:
+            for fn_, n in zip(COUNTED, counts):
+                fn_.launches = n
+        self.launches = {fn_: n for fn_, n in zip(COUNTED, captured) if n}
 
     def load(self, *values) -> None:
         if len(values) != len(self.inputs):
@@ -73,4 +91,6 @@ class Graphed:
     def replay(self):
         self.graph.replay()
         self.replays += 1
+        for fn, n in self.launches.items():
+            fn.launches += n
         return self.outputs

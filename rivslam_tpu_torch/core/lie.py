@@ -133,8 +133,10 @@ def se3_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.zeros(batch + (1, 4), dtype=R.dtype, device=R.device)
-    bottom[..., 0, 3] = 1.0
+    # the row [0, 0, 0, 1] filled on the device (no copy from the host, which
+    # a CUDA graph capture refuses)
+    bottom = torch.cat([torch.zeros(batch + (1, 3), dtype=R.dtype, device=R.device),
+                        torch.ones(batch + (1, 1), dtype=R.dtype, device=R.device)], dim=-1)
     return torch.cat([top, bottom], dim=-2)
 
 

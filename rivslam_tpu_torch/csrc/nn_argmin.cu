@@ -4,7 +4,8 @@
 // Replaces the TPU kernel rivslam_tpu/ops/pallas_nn.py:29-61 (_nn_kernel
 // under nearest_neighbor_pallas, :289-324). On the per-frame engine it is
 // the nearest-neighbour pass of the window backend's edge-information
-// fitness (factors/infomat.fitness_score, once per frame).
+// fitness (factors/infomat.fitness_score, once per frame) and of the
+// keyframe graph's odometry edges.
 //
 // Contract (per problem b, query i):
 //   d2[b, i]  = min over valid refs j of |q|^2 + |r_j|^2 - 2 q.r_j
@@ -16,45 +17,26 @@
 // refs in index order with a strict "<" gives the same winner, whatever the
 // tiling. Valid refs are taken to be finite.
 //
-// Numerics. The distance is K1's (csrc/nn_gather.cu): the expanded form
-//     d2 = (|q|^2 + |r|^2) - 2 (qx rx + qy ry + qz rz)
-// with every product and sum rounded on its own (__fmul_rn/__fadd_rn, no
-// FMA contraction), in the order of the plain twin
-// (ops/nn_argmin.nearest_neighbor_plain), so the two agree bitwise on d2
-// and on the winner. A masked ref carries a NaN norm: every comparison with
-// NaN is false, so it never wins. Do not build with --use_fast_math.
+// What bounds it on an H100. Per (query, valid ref) pair the scan costs 8
+// unfused float32 instructions for the distance plus a compare and two
+// selects (11); the card issues SMs x 128 of them a clock. At B=256,
+// N=M=1024, every ref valid, that is 0.088 ms against 6.6 MB of traffic
+// (0.002 ms): bound by instructions. At the engine's shape (B=1, N=M=1024,
+// ~313 valid refs) the bound is 0.1 us, and the time is latency: a launch,
+// one round of loads, the scan of one thread's refs, the combine.
 //
-// What bounds it on an H100. At the engine's shape (B=1, N=M=1024) the scan
-// visits 1.0e6 pairs at 8 float32 operations each (8.4e6 operations, 0.13 us
-// at 67 TFLOP/s of non-tensor-core float32) and moves about 25 KB; at B=256
-// it is 2.1e9 operations (32 us) against 6.6 MB: bound by operations. The
-// design is K1's scan without the gather: one thread per query keeps
-// (best, first index) in registers; a block of kThreads queries walks the
-// refs in tiles staged in shared memory as float4 (x, y, z, |r|^2 or NaN),
-// read as a broadcast. At B=1 only N/kThreads blocks exist, far fewer than
-// the card's 132 SMs: splitting the refs across blocks (a second reduction
-// pass), tensor-core cross terms and TMA are later work.
+// Design (csrc/nn_scan.cuh): one thread per query; the block stages only
+// the valid refs, compacted in index order, and a grid that would leave SMs
+// idle splits them into S slices (ops/nn_argmin.split_for: S = 8 at the
+// engine's B=1, 1 at B=256) scanned by the S blocks of a cluster and
+// combined through distributed shared memory.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "nn_scan.cuh"
 
 namespace {
 
-constexpr int kThreads = 64;  // queries per block
-constexpr int kTile = 512;    // refs staged per shared-memory tile
-constexpr float kBig = 1e30f;
-
-__device__ __forceinline__ float norm2(float x, float y, float z) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
-}
-
-// Same operation order as nearest_neighbor_plain; see the note above.
-__device__ __forceinline__ float sqdist(float qx, float qy, float qz, float qn,
-                                        float rx, float ry, float rz, float rn) {
-  const float cross =
-      __fadd_rn(__fadd_rn(__fmul_rn(qx, rx), __fmul_rn(qy, ry)), __fmul_rn(qz, rz));
-  return __fsub_rn(__fadd_rn(qn, rn), __fmul_rn(2.0f, cross));
-}
+using nnscan::kBig;
+using nnscan::kThreads;
 
 __global__ void __launch_bounds__(kThreads)
 nn_argmin_kernel(const float* __restrict__ query,   // [B, N, 3]
@@ -63,57 +45,65 @@ nn_argmin_kernel(const float* __restrict__ query,   // [B, N, 3]
                  int32_t* __restrict__ idx_out,     // [B, N]
                  float* __restrict__ d2_out,        // [B, N]
                  int N, int M) {
-  __shared__ float4 tile[kTile];
+  __shared__ nnscan::Smem sh;
 
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const int S = gridDim.x, s = blockIdx.x, b = blockIdx.z;
+  const int i0 = blockIdx.y * kThreads;
+  const int i = i0 + threadIdx.x;
   const bool live = i < N;
   const float* q = query + ((size_t)b * N + (live ? i : 0)) * 3;
   const float qx = q[0], qy = q[1], qz = q[2];
-  const float qn = norm2(qx, qy, qz);
+  const float qn = nnscan::norm2(qx, qy, qz);
+
   const float* r = ref + (size_t)b * M * 3;
   const uint8_t* m = mask + (size_t)b * M;
-  const float nan = __int_as_float(0x7fffffff);
-
+  int lo, hi;
+  nnscan::slice_of(sh, m, M, s, S, lo, hi);
   float best = kBig;
   int best_j = 0;
-
-  for (int start = 0; start < M; start += kTile) {
-    const int n = min(kTile, M - start);
-    __syncthreads();  // the previous tile is no longer read
-    for (int t = threadIdx.x; t < n; t += kThreads) {
-      const int j = start + t;
-      const float x = r[j * 3 + 0], y = r[j * 3 + 1], z = r[j * 3 + 2];
-      tile[t] = make_float4(x, y, z, m[j] ? norm2(x, y, z) : nan);
+  nnscan::scan_slice(sh, r, m, M, lo, hi, qx, qy, qz, qn, best, best_j);
+  if (S == 1) {
+    if (live) {
+      d2_out[(size_t)b * N + i] = best;
+      idx_out[(size_t)b * N + i] = best_j;
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int t = 0; t < n; ++t) {
-      const float4 p = tile[t];
-      const float d = sqdist(qx, qy, qz, qn, p.x, p.y, p.z, p.w);
-      if (d < best) {
-        best = d;
-        best_j = start + t;
-      }
-    }
+    return;
   }
-  if (!live) return;
-  d2_out[(size_t)b * N + i] = best;
-  idx_out[(size_t)b * N + i] = best_j;
+  sh.part_d[threadIdx.x] = best;
+  sh.part_j[threadIdx.x] = best_j;
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  cluster.sync();  // every slice's partials are in
+  // block s writes queries [q0, q0 + nq) of the query block
+  const int q0 = s * kThreads / S, nq = (s + 1) * kThreads / S - q0;
+  const int qi = q0 + (int)threadIdx.x;
+  if ((int)threadIdx.x < nq && i0 + qi < N) {
+    float d;
+    int j;
+    nnscan::combine(sh, S, qi, d, j);
+    d2_out[(size_t)b * N + i0 + qi] = d;
+    idx_out[(size_t)b * N + i0 + qi] = j;
+  }
+  cluster.sync();  // no block leaves while another reads its partials
 }
+
+__global__ void nn_empty_kernel() {}
 
 }  // namespace
 
-// Launches K3 on `stream` and returns the launch's cudaError_t (0 on
-// success). Pointers are device pointers to contiguous tensors of the shapes
-// noted on the kernel; the caller allocates the outputs.
+// Launches K3 on `stream`, the refs split into S slices (1..8), and returns
+// the launch's cudaError_t (0 on success). Pointers are device pointers to
+// contiguous tensors of the shapes noted on the kernel; the caller allocates
+// the outputs.
 extern "C" int rivslam_nn_argmin_f32(const float* query, const float* ref,
                                      const uint8_t* mask, int32_t* idx_out,
-                                     float* d2_out, int B, int N, int M,
+                                     float* d2_out, int B, int N, int M, int S,
                                      void* stream) {
-  if (B <= 0 || N <= 0) return (int)cudaSuccess;
-  const dim3 grid((N + kThreads - 1) / kThreads, B);
-  nn_argmin_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      query, ref, mask, idx_out, d2_out, N, M);
-  return (int)cudaGetLastError();
+  return nnscan::launch_split(nn_argmin_kernel, B, N, S, stream, query, ref, mask, idx_out,
+                              d2_out, N, M);
+}
+
+// An empty kernel on the same grid (S x query blocks x B, the S blocks of a
+// query block as one cluster): the floor of such a launch, for the timing.
+extern "C" int rivslam_nn_empty(int B, int N, int S, void* stream) {
+  return nnscan::launch_split(nn_empty_kernel, B, N, S, stream);
 }

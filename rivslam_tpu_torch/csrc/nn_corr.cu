@@ -14,49 +14,39 @@
 //                problem b has no valid ref;
 //   idx[b, i]  = the FIRST j reaching that minimum, or 0 when there is none;
 //   g[b, i, :] = feats[b, idx[b, i], :] exactly, or zeros when there is none.
-// The scan is K3's (csrc/nn_argmin.cu), operation for operation: refs in
-// index order with a strict "<", which picks the TPU kernel's winner
-// (first index within a 512-ref tile, strict "<" across tiles) whatever the
-// tiling. The TPU kernel gathers with a one-hot matmul per tile; this kernel
-// reads the winning row directly once the scan is done, which equals it for
-// finite features. Valid refs are taken to be finite.
+// The scan is K3's (csrc/nn_scan.cuh): refs in index order with a strict
+// "<", which picks the TPU kernel's winner (first index within a 512-ref
+// tile, strict "<" across tiles) whatever the tiling. The TPU kernel gathers
+// with a one-hot matmul per tile; this kernel reads the winning row directly
+// once the scan is done, which equals it for finite features. Valid refs are
+// taken to be finite.
 //
-// Numerics. Every product and sum of the distance is rounded on its own
-// (__fmul_rn/__fadd_rn, no FMA contraction), in the order of the plain twin
-// (ops/nn_corr.fused_correspondence_plain), so the two agree bitwise on d2,
-// idx and g. A masked ref carries a NaN norm: every comparison with NaN is
-// false, so it never wins. Do not build with --use_fast_math.
+// What bounds it on an H100. As K3 (csrc/nn_argmin.cu): instructions at
+// B=256 (11 a (query, valid ref) pair, 0.088 ms at N=M=1024 with every ref
+// valid, against about 31 MB of traffic with F=12, 0.009 ms); latency at the
+// exact engine's B=1.
 //
-// What bounds it on an H100. At B=256, N=M=1024 the scan visits 2.7e8
-// pairs at 8 float32 operations each (2.1e9 operations, 32 us at 67 TFLOP/s
-// of non-tensor-core float32) against about 31 MB of inputs and outputs
-// with F=12 (9 us at 3.35 TB/s): bound by operations. The design is K3's
-// scan: one thread per query keeps (best, first index) in registers; a
-// block of kThreads queries walks the refs in tiles staged in shared memory
-// as float4 (x, y, z, |r|^2 or NaN), read as a broadcast. The gather comes
-// after the scan: the block's winners go to shared memory, and the block
-// copies its kThreads rows of F floats cooperatively, so consecutive
-// threads write consecutive floats of g.
+// Design: K3's compacted, split scan (csrc/nn_scan.cuh; S slices from
+// ops/nn_corr.split_for), then the gather: each block of the cluster takes
+// its share of the query block's rows (with S = 1, all of them), puts their
+// winners in shared memory and copies the rows of F floats cooperatively, so
+// consecutive threads write consecutive floats of g.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "nn_scan.cuh"
 
 namespace {
 
-constexpr int kThreads = 64;  // queries per block
-constexpr int kTile = 512;    // refs staged per shared-memory tile
-constexpr float kBig = 1e30f;
+using nnscan::kBig;
+using nnscan::kThreads;
 
-__device__ __forceinline__ float norm2(float x, float y, float z) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
-}
-
-// Same operation order as the plain twin; see the note above.
-__device__ __forceinline__ float sqdist(float qx, float qy, float qz, float qn,
-                                        float rx, float ry, float rz, float rn) {
-  const float cross =
-      __fadd_rn(__fadd_rn(__fmul_rn(qx, rx), __fmul_rn(qy, ry)), __fmul_rn(qz, rz));
-  return __fsub_rn(__fadd_rn(qn, rn), __fmul_rn(2.0f, cross));
+// Rows [q0, q0 + nq) of the query block: their winners are in win.
+__device__ void gather_rows(const int* win, const float* __restrict__ fb,
+                            float* __restrict__ gb, int q0, int nq, int F) {
+  for (int k = threadIdx.x; k < nq * F; k += kThreads) {
+    const int row = q0 + k / F;
+    const int j = win[row];
+    gb[(size_t)row * F + (k % F)] = j >= 0 ? fb[(size_t)j * F + (k % F)] : 0.0f;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -68,73 +58,71 @@ nn_corr_kernel(const float* __restrict__ query,   // [B, N, 3]
                float* __restrict__ d2_out,        // [B, N]
                float* __restrict__ g_out,         // [B, N, F]
                int N, int M, int F) {
-  __shared__ float4 tile[kTile];
-  __shared__ int winner[kThreads];  // the block's winning ref rows, -1: none
+  __shared__ nnscan::Smem sh;
 
-  const int b = blockIdx.y;
-  const int i0 = blockIdx.x * kThreads;
+  const int S = gridDim.x, s = blockIdx.x, b = blockIdx.z;
+  const int i0 = blockIdx.y * kThreads;
   const int i = i0 + threadIdx.x;
   const bool live = i < N;
   const float* q = query + ((size_t)b * N + (live ? i : 0)) * 3;
   const float qx = q[0], qy = q[1], qz = q[2];
-  const float qn = norm2(qx, qy, qz);
+  const float qn = nnscan::norm2(qx, qy, qz);
+
   const float* r = ref + (size_t)b * M * 3;
   const uint8_t* m = mask + (size_t)b * M;
-  const float nan = __int_as_float(0x7fffffff);
-
+  int lo, hi;
+  nnscan::slice_of(sh, m, M, s, S, lo, hi);
   float best = kBig;
   int best_j = 0;
+  nnscan::scan_slice(sh, r, m, M, lo, hi, qx, qy, qz, qn, best, best_j);
 
-  for (int start = 0; start < M; start += kTile) {
-    const int n = min(kTile, M - start);
-    __syncthreads();  // the previous tile is no longer read
-    for (int t = threadIdx.x; t < n; t += kThreads) {
-      const int j = start + t;
-      const float x = r[j * 3 + 0], y = r[j * 3 + 1], z = r[j * 3 + 2];
-      tile[t] = make_float4(x, y, z, m[j] ? norm2(x, y, z) : nan);
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int t = 0; t < n; ++t) {
-      const float4 p = tile[t];
-      const float d = sqdist(qx, qy, qz, qn, p.x, p.y, p.z, p.w);
-      if (d < best) {
-        best = d;
-        best_j = start + t;
-      }
-    }
-  }
-  // a query updates its minimum only from a valid ref below 1e30, exactly
-  // when the TPU kernel's gathered row replaces its zero initial value
-  winner[threadIdx.x] = best < kBig ? best_j : -1;
-  if (live) {
-    d2_out[(size_t)b * N + i] = best;
-    idx_out[(size_t)b * N + i] = best_j;
-  }
-  __syncthreads();
-
-  const int nq = min(kThreads, N - i0);
   const float* fb = feats + (size_t)b * M * F;
   float* gb = g_out + ((size_t)b * N + i0) * F;
-  for (int k = threadIdx.x; k < nq * F; k += kThreads) {
-    const int row = k / F;
-    const int j = winner[row];
-    gb[k] = j >= 0 ? fb[(size_t)j * F + (k - row * F)] : 0.0f;
+  const int live_rows = min(kThreads, N - i0);
+  if (S == 1) {
+    // a query updates its minimum only from a valid ref below 1e30, exactly
+    // when the TPU kernel's gathered row replaces its zero initial value
+    sh.win[threadIdx.x] = best < kBig ? best_j : -1;
+    if (live) {
+      d2_out[(size_t)b * N + i] = best;
+      idx_out[(size_t)b * N + i] = best_j;
+    }
+    __syncthreads();
+    gather_rows(sh.win, fb, gb, 0, live_rows, F);
+    return;
   }
+  sh.part_d[threadIdx.x] = best;
+  sh.part_j[threadIdx.x] = best_j;
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  cluster.sync();  // every slice's partials are in
+  // block s writes and gathers queries [q0, q0 + nq) of the query block
+  const int q0 = s * kThreads / S, nq = (s + 1) * kThreads / S - q0;
+  const int qi = q0 + (int)threadIdx.x;
+  if ((int)threadIdx.x < nq) {
+    float d;
+    int j;
+    nnscan::combine(sh, S, qi, d, j);
+    sh.win[qi] = d < kBig ? j : -1;
+    if (i0 + qi < N) {
+      d2_out[(size_t)b * N + i0 + qi] = d;
+      idx_out[(size_t)b * N + i0 + qi] = j;
+    }
+  }
+  __syncthreads();
+  gather_rows(sh.win, fb, gb, q0, max(min(nq, live_rows - q0), 0), F);
+  cluster.sync();  // no block leaves while another reads its partials
 }
 
 }  // namespace
 
-// Launches K2 on `stream` and returns the launch's cudaError_t (0 on
-// success). Pointers are device pointers to contiguous tensors of the shapes
-// noted on the kernel; the caller allocates the outputs.
+// Launches K2 on `stream`, the refs split into S slices (1..8), and returns
+// the launch's cudaError_t (0 on success). Pointers are device pointers to
+// contiguous tensors of the shapes noted on the kernel; the caller allocates
+// the outputs.
 extern "C" int rivslam_nn_corr_f32(const float* query, const float* ref,
                                    const uint8_t* mask, const float* feats,
                                    int32_t* idx_out, float* d2_out, float* g_out,
-                                   int B, int N, int M, int F, void* stream) {
-  if (B <= 0 || N <= 0) return (int)cudaSuccess;
-  const dim3 grid((N + kThreads - 1) / kThreads, B);
-  nn_corr_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      query, ref, mask, feats, idx_out, d2_out, g_out, N, M, F);
-  return (int)cudaGetLastError();
+                                   int B, int N, int M, int F, int S, void* stream) {
+  return nnscan::launch_split(nn_corr_kernel, B, N, S, stream, query, ref, mask, feats, idx_out,
+                              d2_out, g_out, N, M, F);
 }

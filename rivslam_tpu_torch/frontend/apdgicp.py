@@ -17,10 +17,15 @@ Two paths, as in the reference:
   correspondence step is K2 (``ops/nn_corr``): one launch per step gathers
   each transformed source point's nearest target xyz and covariance.
 
-Both registrations share one LM/GN driver, ``solve_lm``: the reference's
-nested ``lax.while_loop``s become capped host loops over all B problems with
-per-problem done masks; an iteration past done leaves that problem's state
-bitwise unchanged, so B problems give what B separate reference calls give.
+Both registrations share one LM/GN loop: the reference's nested
+``lax.while_loop``s become fixed-count functions of tensors over all B
+problems with per-problem done masks. ``lm_iteration`` is one outer
+iteration (the linearization, then always ``lm_max_iterations`` lambda
+tries, ``lm_try``); a try or an iteration past done leaves that problem's
+state bitwise unchanged, so B problems give what B separate reference calls
+give. ``solve_lm`` runs the iterations eagerly and reads one flag from the
+device after each; ``GraphedRegistration`` replays them as CUDA graphs on
+the card (the Engine's odometry), reading the same flag.
 
 VGICP and NDT raise NotImplementedError until they are ported (ROADMAP.md,
 queue 1, item 5 "Options").
@@ -34,7 +39,7 @@ import math
 import numpy as np
 import torch
 
-from rivslam_tpu_torch.core import lie
+from rivslam_tpu_torch.core import cuda_graph, lie
 from rivslam_tpu_torch.core.config import RegistrationConfig
 from rivslam_tpu_torch.core.device import resolve
 from rivslam_tpu_torch.core.pointcloud import SENTINEL
@@ -99,75 +104,190 @@ def _solve(A: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_ex(A, rhs[..., None])[0][..., 0]
 
 
-def solve_lm(T0: torch.Tensor, cfg: RegistrationConfig, linearize_at, error_at):
-    """The LsqRegistration LM/GN driver (lsq_registration_impl.hpp:55-173)
-    over B problems: ``linearize_at(T) -> (H [B,6,6], b [B,6], y0 [B], ctx)``
-    fixes the correspondences at T; ``error_at(T, ctx) -> [B]`` is the error
-    under them. Returns (T, H at the last accepted step, converged,
-    iterations)."""
+def lm_init(T0: torch.Tensor, cfg: RegistrationConfig) -> tuple:
+    """The LM/GN carry before the first outer iteration: (T [B,4,4], lambda
+    [B] (-1: unset, taken from H at the first linearization), converged,
+    failed [B] bool, iterations [B] int32, H at the last accepted step
+    [B,6,6])."""
     dtype, dev = T0.dtype, T0.device
     B = T0.shape[0]
-    eye6 = torch.eye(6, dtype=dtype, device=dev)
-    eye4 = torch.eye(4, dtype=dtype, device=dev).expand(B, 4, 4)
-    T = T0.clone()
-    lam = torch.full((B,), -1.0, dtype=dtype, device=dev)
-    converged = torch.zeros(B, dtype=torch.bool, device=dev)
-    failed = torch.zeros(B, dtype=torch.bool, device=dev)
-    it = torch.zeros(B, dtype=torch.int32, device=dev)
-    Hf = eye6.expand(B, 6, 6).clone()
+    return (
+        T0.clone(),
+        torch.full((B,), -1.0, dtype=dtype, device=dev),
+        torch.zeros(B, dtype=torch.bool, device=dev),
+        torch.zeros(B, dtype=torch.bool, device=dev),
+        torch.zeros(B, dtype=torch.int32, device=dev),
+        torch.eye(6, dtype=dtype, device=dev).expand(B, 6, 6).clone(),
+    )
 
-    for _ in range(cfg.max_iterations):
-        active = ~converged & ~failed & (it < cfg.max_iterations)
-        if not bool(active.any()):
-            break
-        H, b, y0, ctx = linearize_at(T)
-        if cfg.optimizer == "GN":
-            # step_gn (lsq_registration_impl.hpp:107-123): one undamped solve
-            delta = _se3_step(_solve(H, -b))
-            T = _where(active, delta @ T, T)
-            converged = torch.where(active, _is_converged(delta, cfg), converged)
-            it = it + active.to(torch.int32)
-            Hf = _where(active, H, Hf)
-            continue
 
-        diag_max = torch.amax(torch.abs(torch.diagonal(H, dim1=-2, dim2=-1)), dim=-1)
-        lam_i = torch.where(lam < 0, cfg.lm_init_lambda_factor * diag_max, lam)
-        T_i = T
-        nu = torch.full((B,), 2.0, dtype=dtype, device=dev)
-        done = ~active
-        success = torch.zeros_like(done)
-        conv_i = torch.zeros_like(done)
-        dlast = eye4
-        for _ in range(cfg.lm_max_iterations):
-            run = ~done
-            if not bool(run.any()):
-                break
-            d = _solve(H + lam_i[:, None, None] * eye6, -b)
-            delta = _se3_step(d)
-            T_new = delta @ T
-            yi = error_at(T_new, ctx)
-            denom = torch.sum(d * (lam_i[:, None] * d - b), dim=-1)
-            rho = (y0 - yi) / torch.where(torch.abs(denom) < 1e-30, 1e-30, denom)
-            accept = rho >= 0.0
-            conv_rej = _is_converged(delta, cfg)
-            grow = torch.clamp_min(1 - (2 * rho - 1) ** 3, 1 / 3)
-            T_i = _where(run & accept, T_new, T_i)
-            lam_i = torch.where(run, torch.where(accept, lam_i * grow, nu * lam_i), lam_i)
-            nu = torch.where(run & ~accept, 2 * nu, nu)
-            done = torch.where(run, accept | conv_rej, done)
-            success = torch.where(run, accept, success)
-            conv_i = torch.where(run, conv_rej & ~accept, conv_i)
-            dlast = _where(run & accept, delta, dlast)
+def lm_active(carry: tuple, cfg: RegistrationConfig) -> torch.Tensor:
+    """[B] problems that still iterate: neither converged nor failed, and
+    under the iteration cap."""
+    _, _, converged, failed, it, _ = carry
+    return ~converged & ~failed & (it < cfg.max_iterations)
 
-        T = _where(active, T_i, T)
-        lam = torch.where(active, lam_i, lam)
-        converged = torch.where(
-            active, torch.where(success, _is_converged(dlast, cfg), conv_i), converged
+
+def lm_try(tries: tuple, H, b, y0, T, ctx, cfg: RegistrationConfig, error_at) -> tuple:
+    """One try of the lambda search (lsq_registration_impl.hpp:125-173) over
+    the tries' state (T_i, lam_i, nu, done, success, conv_i, dlast). A
+    problem whose search is done (a try accepted, or the rejected step
+    converged) comes out bitwise unchanged."""
+    T_i, lam_i, nu, done, success, conv_i, dlast = tries
+    run = ~done
+    eye6 = torch.eye(6, dtype=H.dtype, device=H.device)
+    d = _solve(H + lam_i[:, None, None] * eye6, -b)
+    delta = _se3_step(d)
+    T_new = delta @ T
+    yi = error_at(T_new, ctx)
+    denom = torch.sum(d * (lam_i[:, None] * d - b), dim=-1)
+    rho = (y0 - yi) / torch.where(torch.abs(denom) < 1e-30, 1e-30, denom)
+    accept = rho >= 0.0
+    conv_rej = _is_converged(delta, cfg)
+    grow = torch.clamp_min(1 - (2 * rho - 1) ** 3, 1 / 3)
+    return (
+        _where(run & accept, T_new, T_i),
+        torch.where(run, torch.where(accept, lam_i * grow, nu * lam_i), lam_i),
+        torch.where(run & ~accept, 2 * nu, nu),
+        torch.where(run, accept | conv_rej, done),
+        torch.where(run, accept, success),
+        torch.where(run, conv_rej & ~accept, conv_i),
+        _where(run & accept, delta, dlast),
+    )
+
+
+def lm_iteration(carry: tuple, cfg: RegistrationConfig, linearize_at, error_at) -> tuple:
+    """One outer LM (or GN) iteration over B problems with no host read:
+    ``linearize_at(T) -> (H [B,6,6], b [B,6], y0 [B], ctx)`` fixes the
+    correspondences at T, ``error_at(T, ctx) -> [B]`` is the error under
+    them. LM always runs ``cfg.lm_max_iterations`` tries (``lm_try``); a
+    problem that is not active (``lm_active``) comes out bitwise unchanged.
+    Returns the next carry (``lm_init``)."""
+    T, lam, converged, failed, it, Hf = carry
+    active = lm_active(carry, cfg)
+    H, b, y0, ctx = linearize_at(T)
+    if cfg.optimizer == "GN":
+        # step_gn (lsq_registration_impl.hpp:107-123): one undamped solve
+        delta = _se3_step(_solve(H, -b))
+        return (
+            _where(active, delta @ T, T), lam,
+            torch.where(active, _is_converged(delta, cfg), converged), failed,
+            it + active.to(torch.int32), _where(active, H, Hf),
         )
-        failed = torch.where(active, ~success & ~conv_i, failed)
-        it = it + active.to(torch.int32)
-        Hf = _where(active & success, H, Hf)
+
+    B = T.shape[0]
+    diag_max = torch.amax(torch.abs(torch.diagonal(H, dim1=-2, dim2=-1)), dim=-1)
+    lam_i = torch.where(lam < 0, cfg.lm_init_lambda_factor * diag_max, lam)
+    done = ~active
+    tries = (
+        T, lam_i, torch.full((B,), 2.0, dtype=T.dtype, device=T.device), done,
+        torch.zeros_like(done), torch.zeros_like(done),
+        torch.eye(4, dtype=T.dtype, device=T.device).expand(B, 4, 4),
+    )
+    for _ in range(cfg.lm_max_iterations):
+        tries = lm_try(tries, H, b, y0, T, ctx, cfg, error_at)
+    T_i, lam_i, _, _, success, conv_i, dlast = tries
+    return (
+        _where(active, T_i, T),
+        torch.where(active, lam_i, lam),
+        torch.where(active, torch.where(success, _is_converged(dlast, cfg), conv_i), converged),
+        torch.where(active, ~success & ~conv_i, failed),
+        it + active.to(torch.int32),
+        _where(active & success, H, Hf),
+    )
+
+
+def solve_lm(T0: torch.Tensor, cfg: RegistrationConfig, linearize_at, error_at):
+    """The LsqRegistration LM/GN loop (lsq_registration_impl.hpp:55-173)
+    over B problems, eagerly: ``lm_iteration`` up to ``cfg.max_iterations``
+    times, reading one flag from the device after each (whether any problem
+    is still active). Returns (T, H at the last accepted step, converged,
+    iterations)."""
+    carry = lm_init(T0, cfg)
+    for i in range(cfg.max_iterations):
+        carry = lm_iteration(carry, cfg, linearize_at, error_at)
+        if i + 1 < cfg.max_iterations and not bool(lm_active(carry, cfg).any()):
+            break
+    T, _, converged, _, it, Hf = carry
     return T, Hf, converged, it
+
+
+def run_registration(model, problem: tuple, T0: torch.Tensor, cfg: RegistrationConfig,
+                     graphs: GraphedRegistration | None = None) -> RegistrationResult:
+    """``solve_lm`` and the final correspondence statistics of one
+    registration. ``model(*problem, cfg) -> (linearize_at, error_at,
+    final_at)`` builds the path's functions over its fixed inputs
+    ``problem`` (tensors); ``final_at(T) -> (error, correspondences,
+    fitness)``. With ``graphs`` (on the card) the iteration and the final
+    step replay CUDA graphs; without, they run eagerly, as on the CPU."""
+    if graphs is not None:
+        T, Hf, converged, it, error, ncorr, fitness = graphs(model, problem, T0, cfg)
+    else:
+        linearize_at, error_at, final_at = model(*problem, cfg)
+        T, Hf, converged, it = solve_lm(T0, cfg, linearize_at, error_at)
+        error, ncorr, fitness = final_at(T)
+    return RegistrationResult(
+        T=T, H=Hf, error=error, converged=converged, iterations=it,
+        num_correspondences=ncorr, fitness=fitness,
+    )
+
+
+class GraphedRegistration:
+    """The registration on the card as CUDA graphs, captured on the first
+    registration of each key (the path's ``model``, the configuration, which
+    holds method, optimizer and ``use_pallas_correspondence``, and the
+    shapes and dtypes of the fixed inputs and of T0, which give B, N, M and
+    F). Each key holds two graphs over shared static inputs (the fixed
+    inputs and the LM carry): one outer iteration (``lm_iteration``), which
+    writes its next carry back into its inputs and leaves whether any
+    problem is still active, and the final correspondence step. A
+    registration copies its inputs in, replays the iteration reading that
+    one flag after each replay (at most ``cfg.max_iterations``), then
+    replays the final step. A capture failure raises."""
+
+    def __init__(self):
+        self._graphs: dict = {}
+        self.reads = 0  # host reads of the active flag
+
+    @property
+    def replays(self) -> int:
+        return sum(g.replays for pair in self._graphs.values() for g in pair)
+
+    def _capture(self, model, problem, T0, cfg):
+        n = len(problem)
+        inputs = [t.clone() for t in (*problem, *lm_init(T0, cfg))]
+
+        def iteration(*args):
+            linearize_at, error_at, _ = model(*args[:n], cfg)
+            carry = args[n:]
+            new = lm_iteration(carry, cfg, linearize_at, error_at)
+            for dst, src in zip(carry, new):
+                dst.copy_(src)
+            return (lm_active(new, cfg).any(),)
+
+        def final(*args):
+            return model(*args[:n], cfg)[2](args[n])
+
+        name = f"{model.__name__}[{'x'.join(map(str, problem[0].shape))}]"
+        return (cuda_graph.Graphed(f"registration iteration {name}", iteration, inputs),
+                cuda_graph.Graphed(f"registration final {name}", final, inputs))
+
+    def __call__(self, model, problem: tuple, T0: torch.Tensor, cfg: RegistrationConfig):
+        key = (model, cfg, T0.dtype, tuple(T0.shape),
+               tuple((tuple(t.shape), t.dtype) for t in problem))
+        if key not in self._graphs:
+            self._graphs[key] = self._capture(model, problem, T0, cfg)
+        iteration, final = self._graphs[key]
+        iteration.load(*problem, *lm_init(T0, cfg))
+        for i in range(cfg.max_iterations):
+            (active,) = iteration.replay()
+            if i + 1 < cfg.max_iterations:
+                self.reads += 1
+                if not bool(active):
+                    break
+        out = final.replay()
+        T, _, converged, _, it, Hf = iteration.inputs[len(problem):]
+        return tuple(t.clone() for t in (T, Hf, converged, it, *out))
 
 
 # ---- the exact path ---------------------------------------------------------
@@ -335,17 +455,22 @@ def _compute_error(T, source: PreparedCloud, c: _Corr):
     return torch.sum(torch.where(c.corr, quad, 0.0), dim=-1)
 
 
-def register(
-    source: PreparedCloud, target: PreparedCloud, guess: torch.Tensor, cfg: RegistrationConfig
-) -> RegistrationResult:
-    """Exact LM/GN alignment of B sources onto B targets (the reference's
-    ``register``): fields [B, N, ...], guess [B, 4, 4]."""
-    dtype = source.xyz.dtype
+def exact_problem(source: PreparedCloud, target: PreparedCloud) -> tuple:
+    """The fixed inputs of an exact registration: the source's xyz, mask and
+    covariance, the target with masked rows at the sentinel, its mask, and
+    what K2 gathers per target (xyz and the full covariance, F = 3 + 9)."""
     B, M = target.xyz.shape[:2]
     tmask = target.mask.contiguous()
     tgt_sent = torch.where(tmask[..., None], target.xyz, SENTINEL).contiguous()
-    # what K2 gathers per target: xyz and the full covariance (F = 3 + 9)
     tgt_feats = torch.cat([target.xyz, target.cov.reshape(B, M, 9)], dim=-1).contiguous()
+    return (source.xyz.contiguous(), source.mask.contiguous(), source.cov.contiguous(),
+            tgt_sent, tmask, tgt_feats)
+
+
+def exact_model(src_xyz, src_mask, src_cov, tgt_sent, tmask, tgt_feats, cfg: RegistrationConfig):
+    """``run_registration``'s functions for the exact path over
+    ``exact_problem``'s inputs."""
+    source = PreparedCloud(xyz=src_xyz, mask=src_mask, cov=src_cov)
 
     def linearize_at(T):
         c = _correspondences(T, source, tgt_sent, tmask, tgt_feats, cfg)
@@ -354,16 +479,26 @@ def register(
     def error_at(T, c):
         return _compute_error(T, source, c)
 
-    T, Hf, converged, it = solve_lm(guess.to(dtype), cfg, linearize_at, error_at)
-    # final correspondence stats at the solution
-    c = _correspondences(T, source, tgt_sent, tmask, tgt_feats, cfg)
-    ncorr = torch.sum(c.corr, dim=-1)
-    fitness = torch.sum(torch.where(c.corr, c.d2, 0.0), dim=-1) / torch.clamp_min(ncorr, 1)
-    _, _, final_err = _linearize(T, source, c)
-    return RegistrationResult(
-        T=T, H=Hf, error=final_err, converged=converged, iterations=it,
-        num_correspondences=ncorr.to(torch.int32), fitness=fitness,
-    )
+    def final_at(T):
+        # final correspondence stats at the solution
+        c = _correspondences(T, source, tgt_sent, tmask, tgt_feats, cfg)
+        ncorr = torch.sum(c.corr, dim=-1)
+        fitness = torch.sum(torch.where(c.corr, c.d2, 0.0), dim=-1) / torch.clamp_min(ncorr, 1)
+        _, _, final_err = _linearize(T, source, c)
+        return final_err, ncorr.to(torch.int32), fitness
+
+    return linearize_at, error_at, final_at
+
+
+def register(
+    source: PreparedCloud, target: PreparedCloud, guess: torch.Tensor, cfg: RegistrationConfig,
+    graphs: GraphedRegistration | None = None,
+) -> RegistrationResult:
+    """Exact LM/GN alignment of B sources onto B targets (the reference's
+    ``register``): fields [B, N, ...], guess [B, 4, 4]; ``graphs`` as in
+    ``run_registration``."""
+    return run_registration(exact_model, exact_problem(source, target),
+                            guess.to(source.xyz.dtype), cfg, graphs)
 
 
 # ---- dispatch -----------------------------------------------------------------
@@ -388,12 +523,13 @@ def prepare(xyz, mask, cfg: RegistrationConfig, device="cuda") -> PreparedCloud:
 
 def register_dispatch(
     source: PreparedCloud, target: PreparedCloud, guess, cfg: RegistrationConfig,
-    device="cuda",
+    device="cuda", graphs: GraphedRegistration | None = None,
 ) -> RegistrationResult:
     """Method factory (registrations.cpp:38-140): FAST_APDGICP / FAST_GICP /
     GICP / GICP_OMP take the structure-of-arrays fast path when
     cfg.use_fast_path; everything else but VGICP/NDT takes the exact
-    ``register`` (ICP drops the Mahalanobis metric)."""
+    ``register`` (ICP drops the Mahalanobis metric). Eager unless the
+    caller hands it ``graphs`` (the Engine's odometry does, on the card)."""
     dev = resolve(device)
     source = _map(source, lambda t: t.to(dev))
     target = _map(target, lambda t: t.to(dev))
@@ -401,7 +537,7 @@ def register_dispatch(
     if source.xyz.ndim == 2:
         batched = register_dispatch(
             _map(source, lambda t: t[None]), _map(target, lambda t: t[None]),
-            guess[None], cfg, dev,
+            guess[None], cfg, dev, graphs,
         )
         return _map(batched, lambda t: t[0])
     m = cfg.method
@@ -413,8 +549,8 @@ def register_dispatch(
     if cfg.use_fast_path and m in _FAST_METHODS:
         from rivslam_tpu_torch.frontend import apdgicp_fast
 
-        return apdgicp_fast.register_fast(source, target, guess, cfg)
-    return register(source, target, guess, cfg)
+        return apdgicp_fast.register_fast(source, target, guess, cfg, graphs)
+    return register(source, target, guess, cfg, graphs)
 
 
 def prepare_and_register(

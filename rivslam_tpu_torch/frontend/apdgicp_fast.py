@@ -8,10 +8,12 @@ the reference. H = J^T M J with J = [skew(p) | -I] uses:
     b_rot = -(p x (M e)),    b_trans = -(M e)
 
 The reference vmaps two nested ``lax.while_loop``s over problems. Here the
-shared driver ``apdgicp.solve_lm`` runs all B problems with per-problem done
-masks, for the outer LM loop (at most ``max_iterations``) and the inner
-lambda search (at most ``lm_max_iterations``); each problem's state follows
-the reference's control flow exactly.
+shared LM loop (``apdgicp.solve_lm``, or its CUDA graphs on the card) runs
+all B problems with per-problem done masks, for the outer LM loop (at most
+``max_iterations``) and the inner lambda search (always
+``lm_max_iterations`` tries, each masked); each problem's state follows the
+reference's control flow exactly. ``fast_problem`` holds the registration's
+fixed inputs and ``fast_model`` the functions of one iteration over them.
 
 The KNN covariance threshold is the EXACT k-th neighbour distance
 (``torch.topk``); the reference uses ``lax.approx_min_k``, which is exact on
@@ -26,7 +28,9 @@ import torch
 
 from rivslam_tpu_torch.core.config import RegistrationConfig
 from rivslam_tpu_torch.core.pointcloud import SENTINEL
-from rivslam_tpu_torch.frontend.apdgicp import PreparedCloud, RegistrationResult, solve_lm
+from rivslam_tpu_torch.frontend.apdgicp import (
+    GraphedRegistration, PreparedCloud, RegistrationResult, run_registration,
+)
 from rivslam_tpu_torch.ops import eig3, nn_gather
 
 
@@ -170,29 +174,29 @@ def _adaptive_cov_soa(px, py, pz, cfg: RegistrationConfig):
     return c00, c01, c02, c11, c12, c22
 
 
-def register_fast(
-    source: PreparedCloud,
-    target: PreparedCloud,
-    guess: torch.Tensor,
-    cfg: RegistrationConfig,
-) -> RegistrationResult:
-    """Batched counterpart of the reference's register_fast: B problems,
-    source/target fields [B, N, ...], guess [B, 4, 4]."""
-    dtype = source.xyz.dtype
-    B = source.xyz.shape[0]
-    T0 = guess.to(dtype)
-
-    sx0, sy0, sz0 = source.xyz.unbind(-1)  # [B, N]
-    s_c = _soa_cov(source.cov)
-    t_c = _soa_cov(target.cov)
+def fast_problem(source: PreparedCloud, target: PreparedCloud) -> tuple:
+    """The fixed inputs of a fast registration: the source's xyz, mask and
+    covariance, the target with masked rows at the sentinel, its mask, and
+    its xyz and covariance components as [B, 9, M], the layout K1 gathers
+    from and returns ([B, 9, N]); the flag-off path gathers the same rows."""
     tmask = target.mask.contiguous()
     tgt_sent = torch.where(tmask[..., None], target.xyz, SENTINEL).contiguous()
-    tn2 = torch.sum(tgt_sent * tgt_sent, dim=-1)  # [B, M]
-    smask = source.mask
-    max_d2 = cfg.max_correspondence_distance**2
-    # target xyz and covariance components, [B, 9, M]: the layout K1 gathers
-    # from and returns ([B, 9, N]); the flag-off path gathers the same rows
+    t_c = _soa_cov(target.cov)
     tgt_feats_t = torch.stack(list(target.xyz.unbind(-1)) + list(t_c), dim=1).contiguous()
+    return (source.xyz.contiguous(), source.mask.contiguous(), source.cov.contiguous(),
+            tgt_sent, tmask, tgt_feats_t)
+
+
+def fast_model(src_xyz, smask, src_cov, tgt_sent, tmask, tgt_feats_t, cfg: RegistrationConfig):
+    """``apdgicp.run_registration``'s functions for the fast path over
+    ``fast_problem``'s inputs."""
+    dtype = src_xyz.dtype
+    B = src_xyz.shape[0]
+    sx0, sy0, sz0 = src_xyz.unbind(-1)  # [B, N]
+    s_c = _soa_cov(src_cov)
+    # the flag-off path's target norms [B, M]
+    tn2 = None if cfg.use_pallas_correspondence else torch.sum(tgt_sent * tgt_sent, dim=-1)
+    max_d2 = cfg.max_correspondence_distance**2
 
     def transform(T):
         Rc = T[:, :3, :3, None]  # [B, 3, 3, 1] broadcasts over points
@@ -274,12 +278,25 @@ def register_fast(
     def error_at(T, ctx):
         return compute_error(T, *ctx)
 
-    T, Hf, converged, it = solve_lm(T0, cfg, linearize_at, error_at)
-    w, m, g, best, p = correspondences(T)
-    ncorr = torch.sum(w, dim=-1)
-    fitness = torch.sum(torch.where(w > 0, best, 0.0), dim=-1) / torch.clamp_min(ncorr, 1)
-    _, _, final_err = linearize(p, m, g)
-    return RegistrationResult(
-        T=T, H=Hf, error=final_err, converged=converged, iterations=it,
-        num_correspondences=ncorr.to(torch.int32), fitness=fitness,
-    )
+    def final_at(T):
+        w, m, g, best, p = correspondences(T)
+        ncorr = torch.sum(w, dim=-1)
+        fitness = torch.sum(torch.where(w > 0, best, 0.0), dim=-1) / torch.clamp_min(ncorr, 1)
+        _, _, final_err = linearize(p, m, g)
+        return final_err, ncorr.to(torch.int32), fitness
+
+    return linearize_at, error_at, final_at
+
+
+def register_fast(
+    source: PreparedCloud,
+    target: PreparedCloud,
+    guess: torch.Tensor,
+    cfg: RegistrationConfig,
+    graphs: GraphedRegistration | None = None,
+) -> RegistrationResult:
+    """Batched counterpart of the reference's register_fast: B problems,
+    source/target fields [B, N, ...], guess [B, 4, 4]; ``graphs`` as in
+    ``apdgicp.run_registration``."""
+    return run_registration(fast_model, fast_problem(source, target),
+                            guess.to(source.xyz.dtype), cfg, graphs)

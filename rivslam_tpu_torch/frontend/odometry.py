@@ -3,7 +3,8 @@
 
 ``state', out = step(state, source, ...)``: guess composition, the
 registration (``register_dispatch`` with one problem; K1 runs inside it
-when ``use_pallas_correspondence`` is on), transform thresholding,
+when ``use_pallas_correspondence`` is on, K2 on the exact path; on the
+card it replays the Engine's ``GraphedRegistration``), transform thresholding,
 keyframe gating and the target swap. Reference quirks kept:
 - the ego-velocity translation prior keeps its previous value when the new
   delta exceeds max_egovel_cum (:369-371);
@@ -89,6 +90,7 @@ def step(
     imu_roll=None,  # [] rad, gravity-derived (fusion)
     imu_pitch=None,
     imu_valid=None,  # [] bool
+    graphs: apdgicp.GraphedRegistration | None = None,  # the registration's CUDA graphs (card)
 ) -> tuple[OdometryState, OdometryOutput]:
     dtype = state.keyframe_pose.dtype
     dev = state.keyframe_pose.device
@@ -102,7 +104,7 @@ def step(
 
     # --- guess and registration (:461-468)
     guess = state.prev_trans @ egovel_cum if odo_cfg.use_ego_vel else state.prev_trans
-    reg = apdgicp.register_dispatch(source, state.target, guess, reg_cfg, device=dev)
+    reg = apdgicp.register_dispatch(source, state.target, guess, reg_cfg, device=dev, graphs=graphs)
 
     # non-convergence -> reuse the previous transform (:476-481)
     trans = torch.where(reg.converged, reg.T, state.prev_trans)

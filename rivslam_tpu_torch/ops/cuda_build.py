@@ -4,8 +4,8 @@ Each kernel source in ``csrc/`` is compiled by one ``nvcc`` call into a
 shared library with a plain C interface, for sm_90a, and loaded with
 ``ctypes``; no PyTorch headers are involved, so a build takes seconds.
 Libraries go into the gitignored ``rivslam_tpu_torch/_build/``, keyed by a
-hash of the source and the flags, so a changed source is never served a
-stale library. nvcc writes to a temporary name that is renamed into place:
+hash of the source, the local headers it includes and the flags, so a
+changed source is never served a stale library. nvcc writes to a temporary name that is renamed into place:
 a concurrent or interrupted build never leaves a partial library behind,
 and no lock is needed. Builds of different sources may run at once (from
 threads: the nvcc subprocess releases the interpreter).
@@ -17,6 +17,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -32,7 +33,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 BUILD_TIMEOUT_S = 600
-MAX_BLOCKS_Y = 65535  # the kernels put problems on grid.y
+MAX_BLOCKS_Y = 65535  # the kernels put problems on grid.y (K1) or grid.z (K2, K3)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,7 +59,11 @@ def library_path(source: str) -> str:
     """Where the library for ``source`` and the current flags lives."""
     h = hashlib.sha256()
     with open(source, "rb") as f:
-        h.update(f.read())
+        text = f.read()
+    h.update(text)
+    for header in re.findall(rb'#include "([^"]+)"', text):
+        with open(os.path.join(os.path.dirname(source), header.decode()), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"{stem}_{h.hexdigest()[:16]}.so")
@@ -104,10 +109,25 @@ def check_launch(batch: int, float32: dict, other: dict) -> None:
         raise ValueError(f"B={batch} exceeds the kernel's {MAX_BLOCKS_Y} problems")
 
 
+_SM_COUNTS: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's SM count (read once per device)."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    if index not in _SM_COUNTS:
+        _SM_COUNTS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SM_COUNTS[index]
+
+
 def launch(fn, device: torch.device, *args) -> None:
     """Call a library's launch function on ``device``'s current stream;
-    raise if the launch was refused (it returns the cudaError_t)."""
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    raise if the launch was refused (it returns the cudaError_t). The device
+    is made current only when it is not already."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: cudaError_t {err}")

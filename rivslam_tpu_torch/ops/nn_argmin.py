@@ -12,8 +12,12 @@ idx 0. This is the TPU kernel's contract, not quite ``ops/knn``'s (which
 clamps at 0 and gives +inf): callers restore that themselves.
 
 - ``nearest_neighbor`` launches the hand-written CUDA kernel
-  (``csrc/nn_argmin.cu``) for CUDA tensors and the plain twin for CPU
-  tensors. It never falls back from one to the other.
+  (``csrc/nn_argmin.cu``, its scan in ``csrc/nn_scan.cuh``) for CUDA tensors
+  and the plain twin for CPU tensors. It never falls back from one to the
+  other. The kernel scans only the valid refs and, where the grid of query
+  blocks would leave SMs idle, splits them into ``split_for(B, N)`` slices
+  scanned by the blocks of a thread-block cluster (8 at the engine's B=1,
+  N=1024; 1 at B=256); every split gives the same bits.
 - ``nearest_neighbor_plain`` is that twin: plain torch, the kernel's
   distance arithmetic (each product and sum rounded on its own) and the TPU
   kernel's tiles of 512 refs, so the two agree bitwise on d2 and idx.
@@ -31,6 +35,8 @@ from rivslam_tpu_torch.ops import cuda_build
 
 BIG = 1e30
 TILE_M = 512  # the TPU kernel's ref tile (pallas_nn.TILE_M)
+THREADS = 64  # queries per block (csrc/nn_scan.cuh kThreads), K2's too
+MAX_SPLIT = 8  # ref slices of a query block: a cluster's portable maximum
 
 SOURCE = os.path.join(cuda_build.CSRC, "nn_argmin.cu")
 
@@ -39,8 +45,21 @@ _build: cuda_build.Build | None = None
 
 def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.rivslam_nn_argmin_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.rivslam_nn_empty
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+
+def split_for(B: int, N: int, device: torch.device) -> int:
+    """The ref slices S that K2 and K3 launch for B problems of N queries: 1
+    while the grid of query blocks (B x N / 64) gives every SM of the card a
+    block, else as many as keep the grid within the card's SMs, at most
+    MAX_SPLIT (the engine's B=1, N=1024 on 132 SMs: 16 blocks, S = 8)."""
+    blocks = B * -(-N // THREADS)
+    sms = cuda_build.sm_count(device)
+    return 1 if blocks >= sms else max(1, min(MAX_SPLIT, sms // blocks))
 
 
 def build() -> cuda_build.Build:
@@ -73,17 +92,26 @@ def nearest_neighbor(
     query: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K3 on CUDA tensors, its plain twin on CPU tensors. See the module doc."""
-    B, N, M = _check(query, ref, ref_mask)
+    B, N, _ = _check(query, ref, ref_mask)
     if query.device.type == "cpu":
         return nearest_neighbor_plain(query, ref, ref_mask)
     if query.device.type != "cuda":
         raise ValueError(f"unsupported device {query.device}")
+    return _launch(query, ref, ref_mask, split_for(B, N, query.device))
+
+
+def _launch(query, ref, ref_mask, splits: int):
+    """Launch K3 on checked CUDA tensors with the refs in ``splits`` slices
+    (``nearest_neighbor`` picks them; the card's tests and timings name
+    them)."""
+    B, N, _ = query.shape
+    M = ref.shape[1]
     cuda_build.check_launch(B, {"query": query, "ref": ref}, {"ref_mask": ref_mask})
-    idx = torch.empty((B, N), dtype=torch.int32, device=query.device)
-    d2 = torch.empty((B, N), dtype=torch.float32, device=query.device)
+    out = torch.empty((2, B, N), dtype=torch.int32, device=query.device)
+    idx, d2 = out[0], out[1].view(torch.float32)
     cuda_build.launch(
         build().lib.rivslam_nn_argmin_f32, query.device, query.data_ptr(), ref.data_ptr(),
-        ref_mask.data_ptr(), idx.data_ptr(), d2.data_ptr(), B, N, M,
+        ref_mask.data_ptr(), idx.data_ptr(), d2.data_ptr(), B, N, M, splits,
     )
     nearest_neighbor.launches += 1
     return idx, d2

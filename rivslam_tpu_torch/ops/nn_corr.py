@@ -15,8 +15,9 @@ problem has no valid ref. g is ``feats[idx]`` exactly, and zeros where there
 is no valid ref. F is at most 128, as for the TPU kernel.
 
 - ``fused_correspondence`` launches the hand-written CUDA kernel
-  (``csrc/nn_corr.cu``) for CUDA tensors and the plain twin for CPU tensors.
-  It never falls back from one to the other.
+  (``csrc/nn_corr.cu``: K3's compacted, split scan, then the gather; the
+  split from ``nn_argmin.split_for``) for CUDA tensors and the plain twin
+  for CPU tensors. It never falls back from one to the other.
 - ``fused_correspondence_plain`` is that twin: K3's plain twin (the TPU
   kernel's 512-ref tiles, the kernel's distance arithmetic) and one gather
   at the end, so the two agree bitwise on idx, d2 and g.
@@ -48,7 +49,7 @@ _build: cuda_build.Build | None = None
 
 def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.rivslam_nn_corr_f32
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
@@ -76,21 +77,32 @@ def fused_correspondence(
     query: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor, feats: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2 on CUDA tensors, its plain twin on CPU tensors. See the module doc."""
-    B, N, M, F = _check(query, ref, ref_mask, feats)
+    B, N, _, _ = _check(query, ref, ref_mask, feats)
     if query.device.type == "cpu":
         return fused_correspondence_plain(query, ref, ref_mask, feats)
     if query.device.type != "cuda":
         raise ValueError(f"unsupported device {query.device}")
+    return _launch(query, ref, ref_mask, feats, nn_argmin.split_for(B, N, query.device))
+
+
+def _launch(query, ref, ref_mask, feats, splits: int):
+    """Launch K2 on checked CUDA tensors with the refs in ``splits`` slices
+    (``fused_correspondence`` picks them; the card's tests and timings name
+    them)."""
+    B, N, _ = query.shape
+    M, F = feats.shape[1:]
     cuda_build.check_launch(
         B, {"query": query, "ref": ref, "feats": feats}, {"ref_mask": ref_mask}
     )
-    idx = torch.empty((B, N), dtype=torch.int32, device=query.device)
-    d2 = torch.empty((B, N), dtype=torch.float32, device=query.device)
-    g = torch.empty((B, N, F), dtype=torch.float32, device=query.device)
+    # idx, d2 and g in one allocation
+    out = torch.empty(B * N * (2 + F), dtype=torch.int32, device=query.device)
+    idx = out[:B * N].view(B, N)
+    d2 = out[B * N:2 * B * N].view(torch.float32).view(B, N)
+    g = out[2 * B * N:].view(torch.float32).view(B, N, F)
     cuda_build.launch(
         build().lib.rivslam_nn_corr_f32, query.device, query.data_ptr(), ref.data_ptr(),
         ref_mask.data_ptr(), feats.data_ptr(), idx.data_ptr(), d2.data_ptr(), g.data_ptr(),
-        B, N, M, F,
+        B, N, M, F, splits,
     )
     fused_correspondence.launches += 1
     return idx, d2, g

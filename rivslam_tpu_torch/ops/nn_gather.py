@@ -62,7 +62,7 @@ def variant_for(B: int, N: int, device=None) -> Variant:
     threads of two queries when that grid still gives every SM of the card
     a block, else 64 threads of one (four times the blocks; the engine's
     single problem)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = cuda_build.sm_count(torch.device("cuda") if device is None else torch.device(device))
     blocks = B * -(-N // (BATCH_VARIANT.threads * BATCH_VARIANT.qpt))
     return BATCH_VARIANT if blocks >= sms else SINGLE_VARIANT
 

@@ -13,8 +13,11 @@ prepare, ``odometry.step`` (K1 inside the fast registration when
 ``use_pallas_correspondence`` is on, K2 inside the exact one) and
 ``slam.backend_step`` (K3 inside the edge-information fitness). On the card
 every stage runs on the device; the backend's window solve replays CUDA
-graphs captured at construction and its IMU preintegration one captured for
-each buffer length on its first frame, and the host reads a few flags per
+graphs captured at construction, its IMU preintegration one captured for
+each buffer length on its first frame, and the odometry's registration two
+(one outer LM iteration, the final correspondence step) captured on its
+first registration (``reg_graphs``); the host reads one flag per outer
+iteration of the registration and of the window solve, and a few more per
 frame. The CPU runs the same code eagerly.
 
 Per keyframe (``_on_keyframe``, synchronous): the keyframe joins the global
@@ -175,10 +178,10 @@ class Engine:
         self.timers = StageTimers()
         # on the card the backend's fixed-shape pieces replay CUDA graphs;
         # the CPU runs them eagerly
-        self.graphs = (
-            slam.BackendGraphs(cfg.backend, cfg.imu, dtype, self.device)
-            if self.device.type == "cuda" else None
-        )
+        on_card = self.device.type == "cuda"
+        self.graphs = slam.BackendGraphs(cfg.backend, cfg.imu, dtype, self.device) if on_card else None
+        # and so does the odometry's registration, captured on its first frame
+        self.reg_graphs = apdgicp.GraphedRegistration() if on_card else None
         # loop-pipeline outcome counts, as the reference's
         self.loop_stats = {
             "detections_run": 0,        # keyframes that entered detection
@@ -263,7 +266,8 @@ class Engine:
                 imu_kw = dict(imu_roll=roll, imu_pitch=pitch, imu_valid=imu_mask.any())
             with record_function("engine.odometry"):
                 st.odo, oout = odometry.step(
-                    st.odo, prepared, ego.v, stamp, c.odometry, c.registration, **imu_kw
+                    st.odo, prepared, ego.v, stamp, c.odometry, c.registration, **imu_kw,
+                    graphs=self.reg_graphs,
                 )
             odom_pose = oout.odom
         frame = slam.BackendFrame(

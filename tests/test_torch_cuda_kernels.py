@@ -530,3 +530,189 @@ def test_a_failed_capture_raises(dev):
     torch.cuda.synchronize()
     y = torch.ones(4, device=dev) * 2  # the device still works after the failed capture
     assert float(y.sum()) == 8.0
+
+
+# ---- K2 and K3 split across a cluster (every S) -----------------------------------
+
+
+def _split_inputs(dev, S, F=12, N=1024, M=1024, keep=0.3, seed=21):
+    """The engine's shape (B=1, about 30% valid refs) with exact ties on
+    either side of every boundary of S slices: the last valid ref of each
+    slice copied onto the first of the next, query s on it (the earlier
+    index must win), and a masked copy below it (it must never win)."""
+    rng = np.random.default_rng(seed + S)
+    r = (rng.normal(size=(1, M, 3)) * 10).astype(np.float32)
+    m = rng.uniform(size=(1, M)) < keep
+    q = (rng.normal(size=(1, N, 3)) * 10).astype(np.float32)
+    valid = np.flatnonzero(m[0])
+    ties = []
+    for s in range(1, S):
+        lo, hi = valid[len(valid) * s // S - 1], valid[len(valid) * s // S]
+        r[0, hi] = r[0, lo]
+        q[0, s] = r[0, lo]
+        r[0, np.flatnonzero(~m[0, :lo])[-1]] = r[0, lo]
+        ties.append((s, lo))
+    f = rng.normal(size=(1, M, F)).astype(np.float32)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return (t(q), t(r), t(m), t(f)), ties
+
+
+SPLITS = list(range(1, nn_argmin.MAX_SPLIT + 1))
+
+
+@pytest.mark.parametrize("S", SPLITS)
+def test_k3_every_split_equals_the_twin(dev, S):
+    (q, r, m, _), ties = _split_inputs(dev, S)
+    idx, d2 = nn_argmin._launch(q, r, m, S)
+    pidx, pd2 = nn_argmin.nearest_neighbor_plain(q, r, m)
+    torch.cuda.synchronize()
+    assert torch.equal(d2, pd2) and torch.equal(idx, pidx)
+    assert all(int(idx[0, qi]) == lo for qi, lo in ties)
+
+
+@pytest.mark.parametrize("F", [9, 12, 128])
+@pytest.mark.parametrize("S", SPLITS)
+def test_k2_every_split_equals_the_twin(dev, S, F):
+    (q, r, m, f), ties = _split_inputs(dev, S, F=F)
+    idx, d2, g = nn_corr._launch(q, r, m, f, S)
+    pidx, pd2, pg = nn_corr.fused_correspondence_plain(q, r, m, f)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, pidx) and torch.equal(d2, pd2) and torch.equal(g, pg)
+    assert all(int(idx[0, qi]) == lo and torch.equal(g[0, qi], f[0, lo]) for qi, lo in ties)
+
+
+@pytest.mark.parametrize("S", SPLITS)
+def test_k2_k3_split_fully_masked_and_ragged(dev, S):
+    """No valid ref at all (1e30, index 0, zero rows), and N, M that are not
+    multiples of the block, the chunk or S."""
+    q, r, m, f = _k2_inputs(dev, 1, 1000, 1500, F=12)
+    for mask in (torch.zeros_like(m), m):
+        got3 = nn_argmin._launch(q, r, mask, S)
+        got2 = nn_corr._launch(q, r, mask, f, S)
+        want3 = nn_argmin.nearest_neighbor_plain(q, r, mask)
+        want2 = nn_corr.fused_correspondence_plain(q, r, mask, f)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got3 + got2, want3 + want2))
+        if not mask.any():
+            idx, d2, g = got2
+            assert torch.all(d2 == 1e30) and torch.all(idx == 0) and torch.all(g == 0)
+
+
+def test_split_for_splits_only_a_grid_that_leaves_sms_idle(dev):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert nn_argmin.split_for(256, 1024, dev) == 1
+    assert 1 < nn_argmin.split_for(1, 1024, dev) <= nn_argmin.MAX_SPLIT
+    assert nn_argmin.split_for(1, 1024, dev) * 16 <= max(sms, 16)
+    # the public wrappers launch split_for's S: the same bits as the twin
+    q, r, m, f = _k2_inputs(dev, 1, 1024, 1024, keep=0.3)
+    _assert_k2_matches_plain(q, r, m, f)
+    _assert_k3_matches_plain(q, r, m)
+
+
+# ---- the registration's CUDA graphs ------------------------------------------------
+
+
+def _registration_frames(dev, cfg, n_frames=5, cap=512):
+    """Prepared clouds along the simulator's circle (changing source and
+    target every frame) and a perturbed guess per frame."""
+    from rivslam_tpu_torch.core import lie
+
+    rng = np.random.default_rng(5)
+    world = synthetic.make_world(rng, n_points=4000)
+    _, poses, _ = synthetic.circular_trajectory(n_frames + 1, dt=0.25, height=2.0)
+    clouds = [synthetic.observe(world, p, rng, capacity=cap, noise=0.01, device=dev) for p in poses]
+    prepared = [apdgicp.prepare(c.xyz[None], c.mask[None], cfg, device=dev) for c in clouds]
+    frames = []
+    for i in range(1, n_frames + 1):
+        rel = np.linalg.inv(poses[i - 1]) @ poses[i]
+        guess = rel @ lie.se3_exp(torch.as_tensor(rng.normal(size=6) * 0.02)).numpy()
+        frames.append((prepared[i], prepared[i - 1],
+                       torch.as_tensor(guess[None], dtype=torch.float32, device=dev)))
+    return frames
+
+
+REG_CASES = [
+    dict(use_pallas_correspondence=True),
+    dict(use_pallas_correspondence=False, optimizer="GN"),
+    dict(use_fast_path=False),
+    dict(use_fast_path=False, method="GICP", optimizer="GN"),
+]
+
+
+@pytest.mark.parametrize("kw", REG_CASES, ids=["fast-K1-LM", "fast-GN", "exact-K2-LM", "exact-GICP-GN"])
+def test_graphed_registration_equals_its_eager_run(dev, kw):
+    """Five frames of changing source and target through the registration's
+    CUDA graphs give bitwise what the same functions give eagerly on the
+    card, with the same K1/K2 launches counted per frame (the graphs credit
+    their captured launches at each replay); one capture for the key."""
+    from rivslam_tpu_torch.core import cuda_graph
+
+    cfg = RegistrationConfig(**kw)
+    graphs = apdgicp.GraphedRegistration()
+    counted = (nn_gather.fused_gather, nn_corr.fused_correspondence)
+    for src, tgt, guess in _registration_frames(dev, cfg):
+        before = [k.launches for k in counted]
+        got = apdgicp.register_dispatch(src, tgt, guess, cfg, device=dev, graphs=graphs)
+        torch.cuda.synchronize()
+        graphed = [k.launches - b for k, b in zip(counted, before)]
+        before = [k.launches for k in counted]
+        with cuda_graph.cusolver():
+            want = apdgicp.register_dispatch(src, tgt, guess, cfg, device=dev)
+        torch.cuda.synchronize()
+        eager = [k.launches - b for k, b in zip(counted, before)]
+        for field in dataclasses.fields(want):
+            assert torch.equal(getattr(got, field.name), getattr(want, field.name)), field.name
+        assert graphed == eager
+        if cfg.use_pallas_correspondence or not cfg.use_fast_path:
+            assert sum(eager) == int(want.iterations.max()) + 1
+    assert len(graphs._graphs) == 1 and graphs.replays > 5
+
+
+def test_engine_replays_the_registration_and_counts_k1_through_it(dev):
+    """The Engine's odometry replays the registration's graphs (captured on
+    its first registration): one host read per outer iteration, and K1's
+    count per frame through the replays equals one launch per iteration
+    executed plus the final step's."""
+    seq, _ = synthetic.simulate_sequence(seed=21, radius=8.0, omega=0.25, dt=0.25, n_frames=4,
+                                         capacity=1024, world_points=20000, extent=30.0)
+    cfg = presets.get("cp")
+    cfg = dataclasses.replace(
+        cfg, loop=dataclasses.replace(cfg.loop, enable=False),
+        registration=dataclasses.replace(cfg.registration, use_pallas_correspondence=True),
+    )
+    eng = pipeline.Engine(cfg, device=dev)
+    k1 = nn_gather.fused_gather.launches
+    datasets.replay(eng, seq, 1024, 64)
+    reg = eng.reg_graphs
+    assert len(reg._graphs) == 1
+    ((iteration, final),) = reg._graphs.values()
+    assert final.replays == 3  # frames 1..3 register; frame 0 starts the odometry
+    assert iteration.launches == {nn_gather.fused_gather: 1}
+    assert nn_gather.fused_gather.launches - k1 == iteration.replays + final.replays
+    assert reg.reads <= iteration.replays
+
+
+def test_a_failed_registration_capture_raises(dev):
+    """A host read inside the registration's iteration fails its capture,
+    and the failure raises with the piece's name: there is no eager
+    fallback."""
+    from rivslam_tpu_torch.frontend import apdgicp_fast
+
+    cfg = RegistrationConfig(use_pallas_correspondence=True)
+    src, tgt, guess = _registration_frames(dev, cfg, n_frames=1)[0]
+
+    def host_reading_model(*args):
+        linearize_at, error_at, final_at = apdgicp_fast.fast_model(*args)
+
+        def linearize(T):
+            H, b, y0, ctx = linearize_at(T)
+            return H * float(y0.sum()), b, y0, ctx
+
+        return linearize, error_at, final_at
+
+    graphs = apdgicp.GraphedRegistration()
+    with pytest.raises(RuntimeError, match="CUDA graph capture of registration iteration host_reading_model"):
+        apdgicp.run_registration(host_reading_model, apdgicp_fast.fast_problem(src, tgt),
+                                 guess, cfg, graphs)
+    torch.cuda.synchronize()
+    assert float(torch.ones(4, device=dev).sum()) == 4.0

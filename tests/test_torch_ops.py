@@ -13,7 +13,7 @@ from rivslam_tpu.ops import knn as ref_knn
 from rivslam_tpu.ops import pallas_nn
 from rivslam_tpu.core.pointcloud import RadarCloud as RefCloud
 from rivslam_tpu.core.pointcloud import masked_xyz as ref_masked_xyz
-from rivslam_tpu_torch.ops import eig3, knn, nn_argmin, nn_corr, nn_gather
+from rivslam_tpu_torch.ops import cuda_build, eig3, knn, nn_argmin, nn_corr, nn_gather
 
 # d2 tolerances of tests/test_pallas_nn.py: the interpreted kernel's cross
 # term is an XLA dot, the twin's three separately rounded products; features
@@ -383,3 +383,105 @@ def test_fused_correspondence_rejects_bad_inputs(bad):
         f = torch.zeros(2, 20, int(bad.split("_")[1]))
     with pytest.raises(ValueError):
         nn_corr.fused_correspondence(q, r, m, f)
+
+
+def test_library_path_follows_included_headers(tmp_path, monkeypatch):
+    """K2 and K3 share their scan through a header: a changed header gets a
+    new build key too."""
+    (tmp_path / "scan.cuh").write_text("// v1\n")
+    src = tmp_path / "k.cu"
+    src.write_text('#include "scan.cuh"\n')
+    monkeypatch.setattr(nn_argmin, "SOURCE", str(src))
+    p1 = cuda_build.library_path(nn_argmin.SOURCE)
+    (tmp_path / "scan.cuh").write_text("// v2\n")
+    assert cuda_build.library_path(nn_argmin.SOURCE) != p1
+
+
+# ---- a plain model of K2's and K3's split, compacted scan (csrc/nn_scan.cuh) ---
+
+
+def _split_scan_model(q, r, m, S):
+    """What the kernel computes with the refs split into S slices: per
+    problem the valid refs in index order (compaction), slice s holding
+    those of rank [s V / S, (s + 1) V / S); each slice scanned in index
+    order with a strict "<" (its first-index minimum), the slices combined
+    in slice order with a strict "<" from (1e30, 0). The distance is the
+    kernel's (each product and sum rounded on its own)."""
+    B, N, _ = q.shape
+    qx, qy, qz = (q[..., k, None] for k in range(3))  # [B, N, 1]
+    qn = qx * qx + qy * qy + qz * qz
+    best = torch.full((B, N), nn_argmin.BIG, dtype=q.dtype)
+    idx = torch.zeros((B, N), dtype=torch.int32)
+    for b in range(B):
+        valid = torch.nonzero(m[b]).flatten()
+        V = len(valid)
+        for s in range(S):
+            js = valid[V * s // S:V * (s + 1) // S]
+            if not len(js):
+                continue
+            rx, ry, rz = (r[b, js, k][None] for k in range(3))  # [1, n]
+            rn = rx * rx + ry * ry + rz * rz
+            d2 = (qn[b] + rn) - 2.0 * (qx[b] * rx + qy[b] * ry + qz[b] * rz)  # [N, n]
+            loc = torch.argmin(d2, dim=-1)  # the first index of the minimum
+            smin = torch.take_along_dim(d2, loc[:, None], dim=-1)[:, 0]
+            upd = smin < best[b]
+            best[b] = torch.where(upd, smin, best[b])
+            idx[b] = torch.where(upd, js[loc].to(torch.int32), idx[b])
+    return idx, best
+
+
+def _split_case(case, S, rng):
+    """[B, N, 3], [B, M, 3], [B, M] numpy inputs for one model case, and the
+    (query, ref) pairs where the query must pick that ref over its exact
+    copies."""
+    B, N, M = (2, 300, 1100) if case == "ragged" else (1, 256, 1024)
+    q = (rng.normal(size=(B, N, 3)) * 10).astype(np.float32)
+    r = (rng.normal(size=(B, M, 3)) * 10).astype(np.float32)
+    m = rng.uniform(size=(B, M)) < (0.3 if case in ("masked70", "ties") else 0.9)
+    if case == "all_masked":
+        m[:] = False
+    ties = []
+    if case == "ties":
+        # exact duplicates across the 512-ref chunk edge, and on either side
+        # of every slice boundary (the last valid ref of a slice copied onto
+        # the first of the next, a masked copy below), queries on them
+        m[0, 500:530] = True
+        valid = np.flatnonzero(m[0])
+        used = set()
+        for s in range(1, max(S, 2)):
+            lo, hi = valid[len(valid) * s // max(S, 2) - 1], valid[len(valid) * s // max(S, 2)]
+            r[0, hi] = r[0, lo]
+            q[0, s] = r[0, lo]
+            r[0, np.flatnonzero(~m[0, :lo])[-1]] = r[0, lo]
+            ties.append((s, lo))
+            used |= {lo, hi}
+        for k in range(8):
+            if not {500 + k, 512 + k} & used:
+                r[0, 512 + k] = r[0, 500 + k]
+                q[0, 100 + k] = r[0, 500 + k]
+                ties.append((100 + k, 500 + k))
+    return q, r, m, ties
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 8])
+@pytest.mark.parametrize("case", ["ties", "masked70", "all_masked", "ragged"])
+def test_split_compacted_scan_model_equals_the_twins(case, S):
+    """The split and the compaction change no bit: slice-wise first-index
+    scans over the valid refs, combined in slice order, equal K3's twin
+    (``nearest_neighbor_plain``) bitwise, and with K2's gather K2's twin
+    (``fused_correspondence_plain``), for every S; M = 1100 is not a
+    multiple of 3 or 8."""
+    rng = np.random.default_rng(40 + S)
+    *inputs, ties = _split_case(case, S, rng)
+    q, r, m = (torch.as_tensor(a) for a in inputs)
+    f = torch.as_tensor(rng.normal(size=(*m.shape, 12)).astype(np.float32))
+    idx, d2 = _split_scan_model(q, r, m, S)
+    pidx, pd2 = nn_argmin.nearest_neighbor_plain(q, r, m)
+    assert torch.equal(idx, pidx) and torch.equal(d2, pd2)
+    rows = torch.take_along_dim(f, idx.long()[..., None], dim=1)
+    g = torch.where((d2 < nn_argmin.BIG)[..., None], rows, 0.0)
+    cidx, cd2, cg = nn_corr.fused_correspondence_plain(q, r, m, f)
+    assert torch.equal(idx, cidx) and torch.equal(d2, cd2) and torch.equal(g, cg)
+    if case == "all_masked":
+        assert torch.all(d2 == nn_argmin.BIG) and torch.all(idx == 0) and torch.all(g == 0)
+    assert all(int(idx[0, qi]) == j for qi, j in ties)  # the first valid copy wins
