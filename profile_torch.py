@@ -1,7 +1,7 @@
 """Where the time of the port goes on the card.
 
     python3 profile_torch.py [--cov KNN|RBF] [--k1 on|off]
-    python3 profile_torch.py --engine [--loop] [--warmup 8] [--frames 4]
+    python3 profile_torch.py --engine [--loop | --garden [--async-loop]] [--warmup 8] [--frames 4]
     python3 profile_torch.py --kernels [--root DIR]
     python3 profile_torch.py --digest [--root DIR]
 
@@ -15,11 +15,18 @@ traced batch.
 ``--engine`` runs the engine over the "cp" course of chip_smoke.py
 (capacity 1024, IMU capacity 64; loop closure off, as chip_smoke.py's
 card-vs-CPU check, or with ``--loop`` the "cp" preset as shipped, loop
-closure on), lets ``--warmup`` frames pass, then traces each of the next
+closure on; with ``--garden`` the "garden" course under chip_smoke.py's
+garden-course configuration, scan-to-map odometry and loop closure on, the
+loop worker asynchronous with ``--async-loop``), lets ``--warmup`` frames
+pass, then traces each of the next
 ``--frames`` frames of ``process_frame`` on its own and prints per frame:
 wall time, the host time of each stage (the Engine's ``record_function``
 scopes, the keyframe graph's among them: ``engine.keyframe``,
-``engine.loop_detection``, ``engine.global_solve``), the kernels run on the
+``engine.loop_detection``, ``engine.global_solve``; the scan-to-map
+registration's ``odometry.scan_to_map`` and ``odometry.submap``; with
+``--async-loop`` the trace holds the frame's thread only, the loop worker's
+times are the Engine's ``loop_detect_async`` and ``graph_opt_async``
+timers), the kernels run on the
 device, split into those the host launched one by one and those of the
 CUDA graph replays (and K1/K2/K3 launches), whether a loop closed, device busy ms, idle share and
 the top device operations. Kernel counts include the launches inside graph
@@ -34,8 +41,10 @@ seeded inputs: B=256 random clouds (every target valid, F = 9 and 12; 90%
 valid, F = 9) by CUDA events, and the engine's shape (B=1, N=M=1024, 30%
 valid, F = 12) as device time in a CUDA graph. ``--digest`` runs the engine
 configurations of chip_smoke.py phases 9-10 (the cp preset for engine seeds
-0, 1 and 2, the exact path for seed 0) and prints the sha256 of each run's
-corrected and uncorrected trajectories, as chip_smoke.py does. With ``--root
+0, 1 and 2, the exact path for seed 0), prints the sha256 of each run's
+corrected and uncorrected trajectories, as chip_smoke.py does, and holds
+each run's ATE to 1.5x the JAX engine's for its seed (chip_smoke.py's REF;
+seeds 1 and 2 are held here only, since chip_smoke.py runs seed 0). With ``--root
 DIR`` both import the port from the checkout at DIR instead of this one: run
 two checkouts in one call, in turns (a, b, b, a), to compare them on one card.
 
@@ -55,6 +64,7 @@ import time
 import torch
 
 B, CAPACITY = 256, 1024
+DIGEST_SEEDS = (0, 1, 2)  # --digest: the cp preset's engine seeds
 
 
 def main() -> None:
@@ -63,6 +73,9 @@ def main() -> None:
     ap.add_argument("--k1", choices=("on", "off"), default="on")
     ap.add_argument("--engine", action="store_true", help="profile the per-frame engine")
     ap.add_argument("--loop", action="store_true", help="with --engine: loop closure on")
+    ap.add_argument("--garden", action="store_true",
+                    help="with --engine: the garden course, scan-to-map and loop closure on")
+    ap.add_argument("--async-loop", action="store_true", help="with --engine --garden: the async loop worker")
     ap.add_argument("--warmup", type=int, default=8)
     ap.add_argument("--frames", type=int, default=4)
     ap.add_argument("--kernels", action="store_true", help="time K1-K3 through the wrappers")
@@ -156,16 +169,16 @@ def _device_kernels(prof):
     return kernels, sum(e.device_time_total for e in kernels) / 1e3, by_name
 
 
-STAGES = ("engine.preprocess", "engine.odometry", "engine.backend", "backend.preintegrate",
-          "backend.information", "backend.window_solve", "engine.keyframe",
-          "engine.loop_detection", "engine.global_solve")
+STAGES = ("engine.preprocess", "engine.odometry", "odometry.scan_to_map", "odometry.submap",
+          "engine.backend", "backend.preintegrate", "backend.information", "backend.window_solve",
+          "engine.keyframe", "engine.loop_detection", "engine.global_solve")
 
 
 def profile_engine(args) -> None:
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import (COURSE, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY, ENGINE_SEED,
-                            loop_off_cfg, preset_cfg)
+    from chip_smoke import (COURSE, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY, ENGINE_SEED, GARDEN_COURSE,
+                            frames, garden_course_cfg, loop_off_cfg, preset_cfg)
     from rivslam_tpu_torch import pipeline, presets
     from rivslam_tpu_torch.io import datasets, synthetic
     from rivslam_tpu_torch.ops import nn_argmin, nn_corr, nn_gather
@@ -176,14 +189,13 @@ def profile_engine(args) -> None:
     smi = _smi()
     # the first frames of chip_smoke.py's course: simulated at its full
     # length (its IMU noise stream depends on the frame count), then cut
-    seq, _ = synthetic.simulate_sequence(**COURSE)
-    n = min(args.warmup + args.frames, seq.num_frames)
-    o = seq.offsets
-    seq = dataclasses.replace(
-        seq, frame_stamps=seq.frame_stamps[:n], offsets=o[:n + 1], xyz=seq.xyz[:o[n]],
-        doppler=seq.doppler[:o[n]], intensity=seq.intensity[:o[n]],
-    )
-    cfg = (preset_cfg if args.loop else loop_off_cfg)(presets)
+    seq, _ = synthetic.simulate_sequence(**(GARDEN_COURSE if args.garden else COURSE))
+    seq = frames(seq, 0, min(args.warmup + args.frames, seq.num_frames))
+    if args.garden:
+        cfg = garden_course_cfg(presets)
+        cfg = dataclasses.replace(cfg, loop=dataclasses.replace(cfg.loop, async_loop=args.async_loop))
+    else:
+        cfg = (preset_cfg if args.loop else loop_off_cfg)(presets)
     eng = pipeline.Engine(cfg, seed=ENGINE_SEED, device="cuda")
     state = {"prof": None, "t0": 0.0, "k": {}, "loops": 0, "reads": 0}
     rows = []
@@ -229,7 +241,8 @@ def profile_engine(args) -> None:
             start()
 
     datasets.replay(eng, seq, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY, progress=tick)
-    print(f"{smi}; engine, cp course, loop closure {'on' if args.loop else 'off'}, capacity "
+    course = f"garden course{', async loop worker' if args.async_loop else ''}" if args.garden else "cp course"
+    print(f"{smi}; engine, {course}, loop closure {'on' if args.loop or args.garden else 'off'}, capacity "
           f"{ENGINE_CAPACITY}; frames {args.warmup}..{args.warmup + args.frames - 1} traced one "
           f"by one; loop_stats {json.dumps(eng.loop_stats)}", flush=True)
     for r in rows:
@@ -315,25 +328,38 @@ def digest_engine(args) -> None:
     import numpy as np
 
     import rivslam_tpu_torch
-    from chip_smoke import (COURSE, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY, ENGINE_SEEDS, exact_cfg,
+    from chip_smoke import (COURSE, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY, MAX_ATE_RATIO, REF, exact_cfg,
                             preset_cfg)
     from rivslam_tpu_torch import pipeline, presets
+    from rivslam_tpu_torch.eval import ate
     from rivslam_tpu_torch.io import datasets, synthetic
 
     root = os.path.dirname(rivslam_tpu_torch.__file__)
     seq, _ = synthetic.simulate_sequence(**COURSE)
-    out = {}
-    for key, cfg, seeds in (("preset", preset_cfg(presets), ENGINE_SEEDS), ("exact", exact_cfg(presets), (0,))):
+    gt = np.linalg.inv(seq.gt_poses[0]) @ seq.gt_poses
+    out, ates = {}, {}
+    for key, cfg, seeds in (("preset", preset_cfg(presets), DIGEST_SEEDS), ("exact", exact_cfg(presets), (0,))):
         for seed in seeds:
             eng = pipeline.Engine(cfg, seed=seed, device="cuda")
             datasets.replay(eng, seq, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY)
-            h = hashlib.sha256()
+            h, run = hashlib.sha256(), f"{key} seed {seed}"
             for corrected in (True, False):
-                h.update(np.ascontiguousarray(eng.trajectory(corrected=corrected)[1]).tobytes())
-            out[f"{key} seed {seed}"] = h.hexdigest()[:16]
-            print(f"port at {root}: engine {key} seed {seed}: sha256 of the corrected and "
-                  f"uncorrected trajectories {out[f'{key} seed {seed}']}", flush=True)
-    print(json.dumps({"card": _smi(), "mode": "digest", "port": root, "digests": out}), flush=True)
+                ts, poses = eng.trajectory(corrected=corrected)
+                h.update(np.ascontiguousarray(poses).tobytes())
+                g = gt[[int(np.argmin(np.abs(seq.gt_stamps - t))) for t in ts]]
+                ates[f"{run} {'corrected' if corrected else 'uncorrected'}"] = ate.ate(
+                    poses[:, :3, 3], g[:, :3, 3])["rmse"]
+            out[run] = h.hexdigest()[:16]
+            ref = REF[key][seed]
+            print(f"port at {root}: engine {run}: sha256 of the corrected and uncorrected "
+                  f"trajectories {out[run]}; ATE {ates[run + ' corrected']:.4f} / "
+                  f"{ates[run + ' uncorrected']:.4f} m (JAX engine on the CPU: {ref['ate_m']:.4f} / "
+                  f"{ref['uncorrected_ate_m']:.4f} m), loops {eng.loop_stats['accepted']}", flush=True)
+            if (ates[run + " corrected"] > MAX_ATE_RATIO * ref["ate_m"]
+                    or ates[run + " uncorrected"] > MAX_ATE_RATIO * ref["uncorrected_ate_m"]):
+                raise SystemExit(f"engine {run}: ATE beyond {MAX_ATE_RATIO}x the JAX engine's")
+    print(json.dumps({"card": _smi(), "mode": "digest", "port": root, "digests": out, "ate_m": ates}),
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -13,18 +13,30 @@ The kernel wrappers (K1-K3) count their launches on the host, so a launch
 inside a graph is counted per replay: the launches a piece made while it
 was captured are credited to each wrapper at every replay, and the set-up
 (warm-up and capture) leaves the counts as it found them.
+
+``LOCK`` makes a capture safe beside a second thread (the Engine's
+asynchronous loop worker). A capture takes it for its warm-up and capture,
+and the worker for each job: under the default capture mode any CUDA call
+of another thread that could touch a capturing stream (a host read, an
+allocation, a synchronize) fails the capture or lands in it, and the
+capture's pinned linalg library (``cusolver``) is a process-wide setting a
+concurrent solve would read. With the lock neither can happen, and no
+worker launch is counted, or lost, while a capture restores the counts.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 
-from rivslam_tpu_torch.ops import nn_argmin, nn_corr, nn_gather
+from rivslam_tpu_torch.ops import cuda_build, nn_argmin, nn_corr, nn_gather
 
 # the wrappers whose ``launches`` a replay credits
 COUNTED = (nn_gather.fused_gather, nn_corr.fused_correspondence, nn_argmin.nearest_neighbor)
+# held by every capture and by every job of the loop worker
+LOCK = threading.RLock()
 
 
 @contextlib.contextmanager
@@ -59,6 +71,11 @@ class Graphed:
         self.inputs = inputs
         self.replays = 0
         dev = inputs[0].device
+        with LOCK:
+            self._capture(fn, dev)
+
+    def _capture(self, fn, dev) -> None:
+        inputs, name = self.inputs, self.name
         counts = [fn_.launches for fn_ in COUNTED]
         try:
             with torch.cuda.device(dev), cusolver():
@@ -92,5 +109,5 @@ class Graphed:
         self.graph.replay()
         self.replays += 1
         for fn, n in self.launches.items():
-            fn.launches += n
+            cuda_build.count_launch(fn, n)
         return self.outputs

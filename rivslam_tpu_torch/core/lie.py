@@ -2,7 +2,8 @@
 
 What the scan match, the odometry and the window backend use: hat, so3
 exp/log and their Jacobians, the SE(3) 4x4 helpers, the geodesic angle,
-re-orthonormalisation and yaw-pitch-roll. Branch-free like the reference:
+re-orthonormalisation and yaw-pitch-roll; and the quaternion helpers of the
+I/O boundary ([w, x, y, z]). Branch-free like the reference:
 small angles take Taylor expansions through ``torch.where``, and every
 function is batched over leading dims, keeps its input's dtype and device,
 and runs under ``torch.func.vmap``/``jacfwd`` (no in-place writes into
@@ -192,3 +193,64 @@ def ypr_from_rot(R: torch.Tensor) -> torch.Tensor:
     pitch = torch.asin(torch.clamp(-R[..., 2, 0], -1.0, 1.0))
     roll = torch.atan2(R[..., 2, 1], R[..., 2, 2])
     return torch.stack([yaw, pitch, roll], dim=-1)
+
+
+# ---- quaternions [w, x, y, z]: the I/O boundary (TUM files) ----------------
+
+
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    q = q / torch.clamp_min(torch.linalg.norm(q, dim=-1, keepdim=True), _EPS)
+    w, x, y, z = q.unbind(-1)
+    rows = [
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ]
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> quaternion [w,x,y,z], branch-free (Shepperd's four
+    candidates, the numerically best kept), w >= 0. Batched."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], dim=-1)
+    qw = torch.sqrt(torch.clamp_min(qw, 1e-12)) * 0.5
+    w0, x1, y2, z3 = qw.unbind(-1)
+    cand = torch.stack([
+        torch.stack([w0, (m21 - m12) / (4 * w0), (m02 - m20) / (4 * w0), (m10 - m01) / (4 * w0)], dim=-1),
+        torch.stack([(m21 - m12) / (4 * x1), x1, (m01 + m10) / (4 * x1), (m02 + m20) / (4 * x1)], dim=-1),
+        torch.stack([(m02 - m20) / (4 * y2), (m01 + m10) / (4 * y2), y2, (m12 + m21) / (4 * y2)], dim=-1),
+        torch.stack([(m10 - m01) / (4 * z3), (m02 + m20) / (4 * z3), (m12 + m21) / (4 * z3), z3], dim=-1),
+    ], dim=-2)
+    idx = torch.argmax(qw, dim=-1)
+    q = torch.take_along_dim(cand, idx[..., None, None].expand(*idx.shape, 1, 4), dim=-2)[..., 0, :]
+    return q * torch.where(q[..., 0:1] < 0, -1.0, 1.0)
+
+
+def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)
+
+
+def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, u) -> torch.Tensor:
+    """Spherical interpolation; u broadcastable."""
+    dot = torch.sum(q0 * q1, dim=-1, keepdim=True)
+    q1 = torch.where(dot < 0, -q1, q1)
+    dot = torch.clamp(torch.abs(dot), -1.0, 1.0)
+    theta = torch.arccos(dot)
+    sin_theta = torch.sin(theta)
+    small = sin_theta < 1e-6
+    safe = torch.where(small, 1.0, sin_theta)
+    w0 = torch.where(small, 1.0 - u, torch.sin((1.0 - u) * theta) / safe)
+    w1 = torch.where(small, u, torch.sin(u * theta) / safe)
+    out = w0 * q0 + w1 * q1
+    return out / torch.clamp_min(torch.linalg.norm(out, dim=-1, keepdim=True), _EPS)

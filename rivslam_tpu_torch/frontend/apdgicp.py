@@ -253,6 +253,21 @@ class GraphedRegistration:
     def replays(self) -> int:
         return sum(g.replays for pair in self._graphs.values() for g in pair)
 
+    def launches_by_shape(self) -> dict:
+        """Kernel launches credited through the replays so far, by
+        registration shape (B, N, M): {shape: {"K1": n, "K2": n}}."""
+        names = {"fused_gather": "K1", "fused_correspondence": "K2"}
+        out: dict = {}
+        for key, pair in self._graphs.items():
+            shapes = key[-1]  # the fixed inputs': source xyz first, target mask fifth
+            shape = (shapes[0][0][0], shapes[0][0][1], shapes[4][0][1])
+            counts = out.setdefault(shape, {})
+            for g in pair:
+                for fn, n in g.launches.items():
+                    name = names[fn.__name__]
+                    counts[name] = counts.get(name, 0) + n * g.replays
+        return out
+
     def _capture(self, model, problem, T0, cfg):
         n = len(problem)
         inputs = [t.clone() for t in (*problem, *lm_init(T0, cfg))]

@@ -9,10 +9,16 @@ changed source is never served a stale library. nvcc writes to a temporary name 
 a concurrent or interrupted build never leaves a partial library behind,
 and no lock is needed. Builds of different sources may run at once (from
 threads: the nvcc subprocess releases the interpreter).
+
+Each kernel wrapper counts its launches with ``count_launch``: into
+``launches``, or into ``worker_launches`` when the launch comes from a
+thread inside ``counting_as_worker`` (the Engine's asynchronous loop
+worker), under one lock, so that two threads never lose a count.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -20,6 +26,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from typing import Callable
 
@@ -131,3 +138,27 @@ def launch(fn, device: torch.device, *args) -> None:
             err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: cudaError_t {err}")
+
+
+_COUNT_LOCK = threading.Lock()
+_THREAD = threading.local()
+
+
+def count_launch(fn, n: int = 1) -> None:
+    """Add ``n`` launches to wrapper ``fn``'s count: ``fn.worker_launches``
+    on a thread inside ``counting_as_worker``, else ``fn.launches``."""
+    with _COUNT_LOCK:
+        if getattr(_THREAD, "worker", False):
+            fn.worker_launches += n
+        else:
+            fn.launches += n
+
+
+@contextlib.contextmanager
+def counting_as_worker():
+    """Count this thread's launches as the loop worker's."""
+    _THREAD.worker = True
+    try:
+        yield
+    finally:
+        _THREAD.worker = False

@@ -73,3 +73,26 @@ def bilateral_filter(cloud: RadarCloud, sigma_s: float, sigma_r: float) -> Radar
     num = torch.einsum("...nm,...m->...n", w, cloud.intensity)
     den = torch.clamp_min(torch.sum(w, dim=-1), 1e-12)
     return cloud.replace(intensity=torch.where(cloud.mask, num / den, cloud.intensity))
+
+
+def z_filter(cloud: RadarCloud, z_min: float) -> RadarCloud:
+    """Under-floor removal (preprocessing_nodelet.cpp underfloor_filter)."""
+    return cloud.and_mask(cloud.xyz[..., 2] > z_min)
+
+
+def distance_histogram(cloud: RadarCloud, max_dist: int = 100) -> torch.Tensor:
+    """Per-meter point-count histogram (preprocessing_nodelet.cpp:818-828),
+    the density diagnostic used to pick fixed capacities."""
+    d = torch.linalg.norm(cloud.xyz, dim=-1)
+    bins = torch.clamp(torch.floor(d).to(torch.int64), 0, max_dist)
+    hist = torch.zeros(max_dist + 1, dtype=torch.int32, device=d.device)
+    return hist.index_add_(0, bins.reshape(-1), cloud.mask.reshape(-1).to(torch.int32))[:max_dist]
+
+
+def spherical_to_cartesian(r, azimuth, elevation) -> torch.Tensor:
+    """Radar polar target -> xyz with the standard spherical formulas (the
+    reference's ingest convention, preprocessing_nodelet.cpp:333-335)."""
+    x = r * torch.cos(elevation) * torch.cos(azimuth)
+    y = r * torch.cos(elevation) * torch.sin(azimuth)
+    z = r * torch.sin(elevation)
+    return torch.stack([x, y, z], dim=-1)

@@ -113,11 +113,12 @@ def _launch(query, ref, ref_mask, splits: int):
         build().lib.rivslam_nn_argmin_f32, query.device, query.data_ptr(), ref.data_ptr(),
         ref_mask.data_ptr(), idx.data_ptr(), d2.data_ptr(), B, N, M, splits,
     )
-    nearest_neighbor.launches += 1
+    cuda_build.count_launch(nearest_neighbor)
     return idx, d2
 
 
-nearest_neighbor.launches = 0  # K3 launches (CUDA path only)
+nearest_neighbor.launches = 0  # K3 launches (CUDA path only), but for the loop worker's
+nearest_neighbor.worker_launches = 0  # those of the loop worker's thread
 
 
 def nearest_neighbor_plain(

@@ -104,11 +104,12 @@ def _launch(query, ref, ref_mask, feats, splits: int):
         ref_mask.data_ptr(), feats.data_ptr(), idx.data_ptr(), d2.data_ptr(), g.data_ptr(),
         B, N, M, F, splits,
     )
-    fused_correspondence.launches += 1
+    cuda_build.count_launch(fused_correspondence)
     return idx, d2, g
 
 
-fused_correspondence.launches = 0  # K2 launches (CUDA path only)
+fused_correspondence.launches = 0  # K2 launches (CUDA path only), but for the loop worker's
+fused_correspondence.worker_launches = 0  # those of the loop worker's thread
 
 
 def fused_correspondence_plain(

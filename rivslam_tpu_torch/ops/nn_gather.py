@@ -135,11 +135,12 @@ def _launch(query, ref, ref_mask, feats_t, variant: Variant):
         ref_mask.data_ptr(), feats_t.data_ptr(), d2.data_ptr(), g.data_ptr(),
         B, N, M, F, variant.threads, variant.qpt,
     )
-    fused_gather.launches += 1
+    cuda_build.count_launch(fused_gather)
     return d2, g
 
 
-fused_gather.launches = 0  # K1 launches (CUDA path only)
+fused_gather.launches = 0  # K1 launches (CUDA path only), but for the loop worker's
+fused_gather.worker_launches = 0  # those of the loop worker's thread
 
 
 def fused_gather_plain(

@@ -20,15 +20,38 @@ first registration (``reg_graphs``); the host reads one flag per outer
 iteration of the registration and of the window solve, and a few more per
 frame. The CPU runs the same code eagerly.
 
-Per keyframe (``_on_keyframe``, synchronous): the keyframe joins the global
-graph with its odometry edge (its information from a K3 fitness pass),
-GPS and barometer priors, and the scan-context database; with
-``loop.enable``, loop detection runs inline: candidate prefilter,
-scan-context match, registration verification (the engine's own
-registration: K1 or K2), odometry and pairwise checks, and on acceptance the
-loop edge and a global solve (block-Schur by default). A full graph is
-compacted. ``trajectory(corrected=True)`` spreads the graph's correction
-over every frame.
+With ``odometry.enable_scan_to_map`` (the nyl and garden presets) the
+odometry is ``scan2map.step``: the scan-to-scan step, then a second
+registration of the scan against the merged submap of the last keyframes
+(on the card a second registration shape, N against 5 N, with its own
+graph pair), the submap rebuilt on keyframes only.
+
+Per keyframe (``_on_keyframe``): the keyframe joins the global graph with
+its odometry edge (its information from a K3 fitness pass), GPS and
+barometer priors, and the scan-context database, always on the frame's
+thread; with ``loop.enable``, loop detection runs on a snapshot of that
+state: candidate prefilter, scan-context match, registration verification
+(the engine's own registration: K1 or K2), odometry and pairwise checks, and
+on acceptance the loop edge and a global solve (block-Schur by default). A
+full graph is compacted. ``trajectory(corrected=True)`` spreads the graph's
+correction over every frame.
+
+Loop detection runs inline, or with ``loop.async_loop`` on a worker thread
+(the reference's wall-timer architecture, radar_graph_slam_nodelet.cpp:177,
+652-778): one job in flight, a keyframe that finds the worker busy is
+skipped (``loop_stats["skipped_worker_busy"]``), and the worker's detection
+and global solve merge into the live graph at the next frame
+(``_apply_pending_loops``): keyframes the worker saw take its solved poses,
+later ones re-chain their odometry edges onto them (``_merge_chain``).
+``drain_loops`` waits for the worker; draining after every frame gives the
+synchronous run bitwise. A worker exception is raised on the frame's
+thread; a result computed before a compaction is dropped. On the card the
+worker runs on its own CUDA stream: it waits on an event recorded on the
+frame's stream when the snapshot is taken, the frame's stream waits on one
+the worker records before a result is read, and tensors used on the other
+stream are marked with ``record_stream``; each job holds
+``core/cuda_graph.LOCK``, which every graph capture takes too, and its
+kernel launches count as ``worker_launches``.
 
 The stages carry ``torch.profiler.record_function`` scopes
 (``engine.preprocess``, ``engine.odometry``, ``engine.backend``, with
@@ -46,30 +69,30 @@ same hypotheses. The one seam for the draw is the ``uniforms`` argument:
 ``uniforms(frame_index, shape) -> array in [0, 1)``, called per frame for
 REVE's [ransac_iter, N] and then the floor's [ransac_iterations, N] scores
 (the parity tests feed the JAX engine's own draws through it).
-
-Not ported yet: the asynchronous loop worker (``loop.async_loop``, with
-``drain_loops`` and ``close``; ROADMAP.md queue 1 item 1) and scan-to-map
-odometry (item 2) raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import queue
+import threading
+import time
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
 from rivslam_tpu_torch.backend import slam
-from rivslam_tpu_torch.core import lie
+from rivslam_tpu_torch.core import cuda_graph, lie
 from rivslam_tpu_torch.core.config import EngineConfig
 from rivslam_tpu_torch.core.device import resolve
 from rivslam_tpu_torch.core.pointcloud import RadarCloud
 from rivslam_tpu_torch.eval.timing import StageTimers
 from rivslam_tpu_torch.factors import infomat
-from rivslam_tpu_torch.frontend import apdgicp, floor, odometry, reve
+from rivslam_tpu_torch.frontend import apdgicp, floor, odometry, reve, scan2map
 from rivslam_tpu_torch.loop import block_schur, detector, global_graph, scancontext
-from rivslam_tpu_torch.ops import deskew, filters, voxel
+from rivslam_tpu_torch.ops import cuda_build, deskew, filters, voxel
 
 
 def _se3_log_np(T: np.ndarray) -> np.ndarray:
@@ -129,6 +152,39 @@ def _with_rows(g, k: int, **rows):
     return dataclasses.replace(g, **upd)
 
 
+def _tensors(obj):
+    """Every tensor in a nest of dicts, lists, tuples and dataclasses."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from _tensors(v)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from _tensors(v)
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            yield from _tensors(getattr(obj, f.name))
+
+
+def _merge_chain(live_R, live_p, solved_R, solved_p, rel_R, rel_p, k_snap: int, count: int):
+    """Merge a worker's solved pose set into the live graph: nodes <= k_snap
+    take the worker's estimates; the keyframes inserted since the snapshot
+    (k_snap < i < count) re-chain their raw odometry deltas onto them (the
+    trans_odom2map retarget, radar_graph_slam_nodelet.cpp:222-247, applied
+    at merge time); slots >= count keep their live values. The reference
+    scans all K slots; only the inserted keyframes differ from a copy, so
+    the host loops over those alone (the same arithmetic for them)."""
+    R, p = solved_R.clone(), solved_p.clone()
+    for i in range(k_snap + 1, count):
+        Rp = R[i - 1]
+        R[i] = Rp @ rel_R[i]
+        p[i] = Rp @ rel_p[i] + p[i - 1]
+    R[count:] = live_R[count:]
+    p[count:] = live_p[count:]
+    return R, p
+
+
 @dataclasses.dataclass
 class EngineState:
     """Mutable host-side engine state (device tensors inside)."""
@@ -151,6 +207,8 @@ class EngineState:
     baro_zero: float | None = None  # altitude origin = first keyframe reading
     gps_kf_since_solve: int = 0  # GPS-tagged keyframes since the last solve
     trajectory: list = dataclasses.field(default_factory=list)  # (t, pose 4x4)
+    compact_epoch: int = 0  # bumped by each compaction: an async loop result
+    # from before one carries stale node indices and is dropped
 
 
 class Engine:
@@ -159,16 +217,6 @@ class Engine:
 
     def __init__(self, cfg: EngineConfig = EngineConfig(), dtype=torch.float32, seed: int = 0,
                  device="cuda", uniforms=None):
-        if cfg.loop.async_loop:
-            raise NotImplementedError(
-                "the asynchronous loop worker (loop.async_loop) is not ported yet: see "
-                "ROADMAP.md, queue 1, item 1 (async loop worker)"
-            )
-        if cfg.odometry.enable_scan_to_map:
-            raise NotImplementedError(
-                "scan-to-map odometry is not ported yet: see ROADMAP.md, queue 1, item 2 "
-                "(scan-to-map odometry)"
-            )
         self.cfg = cfg
         self.dtype = dtype
         self.device = resolve(device)
@@ -182,10 +230,20 @@ class Engine:
         self.graphs = slam.BackendGraphs(cfg.backend, cfg.imu, dtype, self.device) if on_card else None
         # and so does the odometry's registration, captured on its first frame
         self.reg_graphs = apdgicp.GraphedRegistration() if on_card else None
+        # the asynchronous loop worker (loop.async_loop): one job in flight,
+        # results merged on the frame's thread at the next frame
+        self._loop_thread = None
+        self._loop_queue = None
+        self._loop_stream = None  # the worker's CUDA stream (card)
+        self._loop_results: list = []
+        self._loop_lock = threading.Lock()
+        self._loop_busy = False
+        self._loop_skipped = 0  # keyframes skipped while the worker was busy
+        self._loop_error: BaseException | None = None
         # loop-pipeline outcome counts, as the reference's
         self.loop_stats = {
             "detections_run": 0,        # keyframes that entered detection
-            "skipped_worker_busy": 0,   # async worker overrun (no worker here: 0)
+            "skipped_worker_busy": 0,   # async worker overrun (= _loop_skipped)
             "no_candidate": 0,          # prefilter/SC retrieval empty
             "rejected_verify": 0,       # registration fitness gate
             "rejected_odom_check": 0,   # LAMP odometry check
@@ -253,7 +311,10 @@ class Engine:
         oout = None
         if st.odo is None:
             # first frame (scan_matching_odometry_nodelet.cpp:431-445)
-            st.odo = odometry.init_state(prepared, stamp, dtype=self.dtype)
+            if c.odometry.enable_scan_to_map:
+                st.odo = scan2map.init_state(prepared, stamp, c.odometry, dtype=self.dtype)
+            else:
+                st.odo = odometry.init_state(prepared, stamp, dtype=self.dtype)
             odom_pose = torch.eye(4, dtype=self.dtype, device=self.device)
             st.backend = slam.init_state(c.backend, c.imu, cl.capacity, self.dtype, self.device)
         else:
@@ -264,8 +325,9 @@ class Engine:
                 acc_mean = (imu_acc * w[:, None]).sum(0) / torch.clamp_min(w.sum(), 1.0)
                 roll, pitch = odometry.roll_pitch_from_gravity(acc_mean)
                 imu_kw = dict(imu_roll=roll, imu_pitch=pitch, imu_valid=imu_mask.any())
+            step = scan2map.step if c.odometry.enable_scan_to_map else odometry.step
             with record_function("engine.odometry"):
-                st.odo, oout = odometry.step(
+                st.odo, oout = step(
                     st.odo, prepared, ego.v, stamp, c.odometry, c.registration, **imu_kw,
                     graphs=self.reg_graphs,
                 )
@@ -289,6 +351,9 @@ class Engine:
         the reference's output dict."""
         c = self.cfg
         st = self.state
+        # merge the async worker's finished detections first, so that this
+        # frame's keyframe chains onto the corrected graph
+        loop_applied = self._apply_pending_loops()
         imu_acc, imu_gyr, imu_mask = np.asarray(imu_acc), np.asarray(imu_gyr), np.asarray(imu_mask)
         if c.imu.apply_extrinsics:
             # imuConverter parity (utility_radar.h:206-236)
@@ -314,10 +379,10 @@ class Engine:
             is_kf = bool(oout.is_keyframe)
             reg_ok = bool(oout.reg.converged)
             status = self._scan_matching_status(oout)
-        loop_found = False
+        loop_found = loop_applied
         if is_kf:
             with self.timers.time("loop"):
-                loop_found = self._on_keyframe(cl, odom_pose, stamp, altitude, gps_utm, gps_cov)
+                loop_found = self._on_keyframe(cl, odom_pose, stamp, altitude, gps_utm, gps_cov) or loop_found
         st.frame_idx += 1
         pose = bout.pose.cpu().numpy()
         st.trajectory.append((stamp, pose))
@@ -355,8 +420,8 @@ class Engine:
             xyz1, mask1, xyz2, mask2, relpose, self.cfg.backend, scaled=False
         )
 
-    def _solve_graph(self, g: global_graph.PoseGraph) -> global_graph.PoseGraph:
-        with record_function("engine.global_solve"), self.timers.time("graph_opt"):
+    def _solve_graph(self, g: global_graph.PoseGraph, timer: str = "graph_opt") -> global_graph.PoseGraph:
+        with record_function("engine.global_solve"), self.timers.time(timer):
             if self.cfg.loop.global_solver == "SCHUR":
                 g, _ = block_schur.solve_pose_graph_schur(g, num_blocks=self.cfg.loop.schur_blocks)
             else:
@@ -369,15 +434,32 @@ class Engine:
 
     def _on_keyframe(self, cl: RadarCloud, odom_pose, stamp: float, altitude=None,
                      gps_utm=None, gps_cov=None) -> bool:
-        """Keyframe hook: graph insertion, then (with loop.enable) loop
-        detection inline, as the reference's synchronous branch."""
+        """Keyframe hook: graph insertion (always on the frame's thread:
+        later keyframes chain onto it), then, with loop.enable, loop
+        detection on a snapshot of the state: inline, or handed to the
+        worker with loop.async_loop."""
         c = self.cfg
+        st = self.state
         with record_function("engine.keyframe"):
             k = self._insert_keyframe(cl, odom_pose, stamp, altitude, gps_utm, gps_cov)
-        if k is None or not c.loop.enable or self.state.kf_count < c.loop.num_exclude_recent + 2:
+        if k is None or not c.loop.enable or st.kf_count < c.loop.num_exclude_recent + 2:
+            return False
+        # tensors are never written in place on the keyframe path (graph rows
+        # go through _with_rows, which clones), and the lists are copied: the
+        # worker sees the state as it is now
+        snap = {
+            "xyz": cl.xyz, "intensity": cl.intensity, "mask": cl.mask, "k": k,
+            "odom_pose": odom_pose, "graph": st.graph, "scdb": st.scdb,
+            "kf_clouds": list(st.kf_clouds), "kf_accum": list(st.kf_accum),
+            "kf_alt": list(st.kf_alt), "kf_odom": list(st.kf_odom), "kf_count": st.kf_count,
+            "last_loop_accum": st.last_loop_accum, "prev_loop": st.prev_loop,
+            "epoch": st.compact_epoch,
+        }
+        if c.loop.async_loop:
+            self._submit_loop_job(snap)
             return False
         with record_function("engine.loop_detection"):
-            det = self._run_loop_detection(cl, k, odom_pose)
+            det = self._run_loop_detection(snap)
         return det is not None and self._accept_loop(det)
 
     def _insert_keyframe(self, cl: RadarCloud, odom_pose, stamp: float, altitude=None,
@@ -427,7 +509,8 @@ class Engine:
             self.loop_stats["sc_dropped_capacity"] += 1
         st.kf_clouds.append((cl.xyz, cl.mask))
         st.kf_stamps.append(stamp)
-        st.kf_accum.append(float(st.odo.accum_distance))
+        odo = st.odo.base if isinstance(st.odo, scan2map.SubmapOdometryState) else st.odo
+        st.kf_accum.append(float(odo.accum_distance))
         st.kf_alt.append(float("nan") if altitude is None else float(altitude))
         st.kf_count += 1
 
@@ -487,17 +570,21 @@ class Engine:
         for name in ("kf_clouds", "kf_stamps", "kf_accum", "kf_alt", "kf_odom"):
             setattr(st, name, [getattr(st, name)[i] for i in keep])
         st.kf_count = len(keep)
-        # the pairwise-consistency memory holds old indices
+        # the pairwise-consistency memory holds old indices, and so do the
+        # async worker's detections in flight: the epoch drops their results
         st.prev_loop = None
+        st.compact_epoch += 1
 
     # ---- loop detection ----------------------------------------------------
-    def _run_loop_detection(self, cl: RadarCloud, k: int, odom_pose):
+    def _run_loop_detection(self, snap: dict):
         """Scan-context match + registration verify + consistency gates for
-        keyframe k. Returns the accepted-loop record, or None."""
+        keyframe snap["k"] over a snapshot of the state (``_on_keyframe``);
+        safe on the worker thread. Returns the accepted-loop record, or
+        None."""
         c = self.cfg
-        st = self.state
         K = c.loop.keyframe_capacity
-        n = st.kf_count
+        k, n = snap["k"], snap["kf_count"]
+        kf_clouds = snap["kf_clouds"]
         stats = self.loop_stats
         stats["detections_run"] += 1
 
@@ -506,21 +593,22 @@ class Engine:
             a[:n] = values
             return torch.as_tensor(a, dtype=self.dtype, device=self.device)
 
-        alt = np.asarray(st.kf_alt, np.float64)
+        alt = np.asarray(snap["kf_alt"], np.float64)
         alt_valid = np.zeros(K, bool)
         alt_valid[:n] = ~np.isnan(alt)
-        g = st.graph
+        g = snap["graph"]
         cand = detector.prefilter_candidates(
-            padded(st.kf_accum), g.R, g.p, g.node_mask, k, st.last_loop_accum, c.loop,
+            padded(snap["kf_accum"]), g.R, g.p, g.node_mask, k, snap["last_loop_accum"], c.loop,
             altitude=padded(np.nan_to_num(alt)),
             altitude_valid=torch.as_tensor(alt_valid, device=self.device),
         )
-        desc = scancontext.make_descriptor(cl.xyz, cl.intensity, cl.mask, c.loop)
+        xyz, mask = snap["xyz"], snap["mask"]
+        desc = scancontext.make_descriptor(xyz, snap["intensity"], mask, c.loop)
         if c.loop.verify_candidates > 1:
             # verify the top-k scan-context candidates as one batch, keep the
             # best-fitness pass
             idxs, yaws, _, valid = scancontext.match_topk(
-                st.scdb, desc, k, cand, c.loop, c.loop.verify_candidates
+                snap["scdb"], desc, k, cand, c.loop, c.loop.verify_candidates
             )
             idxs_h = idxs.cpu().numpy()
             if not (idxs_h >= 0).any():
@@ -528,8 +616,8 @@ class Engine:
                 return None
             gather = [max(int(i), 0) for i in idxs_h]
             res, oks, best = detector.verify_loops_batch(
-                cl.xyz, cl.mask, torch.stack([st.kf_clouds[i][0] for i in gather]),
-                torch.stack([st.kf_clouds[i][1] for i in gather]), yaws, valid,
+                xyz, mask, torch.stack([kf_clouds[i][0] for i in gather]),
+                torch.stack([kf_clouds[i][1] for i in gather]), yaws, valid,
                 c.registration, c.loop,
             )
             if not bool(oks.any()):
@@ -539,14 +627,14 @@ class Engine:
             idx = int(idxs_h[b])
             T_lc = res.T[b]
         else:
-            idx_t, yaw, _ = scancontext.match(st.scdb, desc, k, cand, c.loop)
+            idx_t, yaw, _ = scancontext.match(snap["scdb"], desc, k, cand, c.loop)
             idx = int(idx_t)
             if idx < 0:
                 stats["no_candidate"] += 1
                 return None
-            cand_xyz, cand_mask = st.kf_clouds[idx]
+            cand_xyz, cand_mask = kf_clouds[idx]
             res, ok = detector.verify_loop(
-                cl.xyz, cl.mask, cand_xyz, cand_mask, c.registration, c.loop, yaw_guess=yaw
+                xyz, mask, cand_xyz, cand_mask, c.registration, c.loop, yaw_guess=yaw
             )
             if not bool(ok):
                 stats["rejected_verify"] += 1
@@ -554,14 +642,14 @@ class Engine:
             T_lc = res.T
         # odometry check: T_lc maps the new cloud into the candidate's frame;
         # both poses are RAW odometry (loop_detector.cpp:252,278-283)
-        odom_i, odom_j = st.kf_odom[idx], odom_pose
+        odom_i, odom_j = snap["kf_odom"][idx], snap["odom_pose"]
         T_jl = lie.se3_inverse(T_lc)
         if not bool(detector.odometry_check(T_jl, odom_i, odom_j, k - idx, c.loop)):
             stats["rejected_odom_check"] += 1
             return None
-        if st.prev_loop is not None:
+        prev = snap["prev_loop"]
+        if prev is not None:
             stats["pairwise_checked"] += 1
-            prev = st.prev_loop
             if not bool(detector.pairwise_check(
                 T_jl, odom_i, odom_j, prev["odom_i"], prev["odom_j"], prev["T_lc"], True, c.loop
             )):
@@ -569,10 +657,11 @@ class Engine:
                 return None
         # information from the registration fitness between the matched
         # clouds (loop_detector.cpp:314); measurement T_i^-1 T_j = T_lc
-        cand_xyz, cand_mask = st.kf_clouds[idx]
-        loop_info = self._edge_info(cl.xyz, cl.mask, cand_xyz, cand_mask, T_jl)
+        cand_xyz, cand_mask = kf_clouds[idx]
+        loop_info = self._edge_info(xyz, mask, cand_xyz, cand_mask, T_jl)
         return {"k": k, "idx": idx, "T_lc": T_lc, "loop_info": loop_info,
-                "odom_i": odom_i, "odom_j": odom_j, "accum": float(st.kf_accum[k])}
+                "odom_i": odom_i, "odom_j": odom_j, "accum": float(snap["kf_accum"][k]),
+                "epoch": snap["epoch"]}
 
     def _add_loop_edge(self, g: global_graph.PoseGraph, det: dict):
         """g with det's loop edge in the next free slot; None when full."""
@@ -585,9 +674,10 @@ class Engine:
             loop_rel_p=T_lc[:3, 3], loop_info=det["loop_info"], loop_mask=True,
         )
 
-    def _accept_loop(self, det: dict) -> bool:
-        """Commit an accepted loop: add the edge, update the gating memory,
-        re-optimize the global graph."""
+    def _accept_loop(self, det: dict, solved=None) -> bool:
+        """Commit an accepted loop to the live graph: add the edge, update
+        the gating memory, then re-optimize (``solved`` None: the
+        synchronous path) or merge the worker's solved poses (R, p)."""
         st = self.state
         g2 = self._add_loop_edge(st.graph, det)
         if g2 is None:
@@ -596,16 +686,154 @@ class Engine:
         self.loop_stats["accepted"] += 1
         st.last_loop_accum = det["accum"]
         st.prev_loop = {"odom_i": det["odom_i"], "odom_j": det["odom_j"], "T_lc": det["T_lc"]}
-        st.graph = self._solve_graph(g2)
+        if solved is None:
+            st.graph = self._solve_graph(g2)
+        else:
+            R, p = _merge_chain(g2.R, g2.p, solved[0], solved[1], g2.odom_rel_R, g2.odom_rel_p,
+                                det["k"], st.kf_count)
+            st.graph = dataclasses.replace(g2, R=R, p=p)
         st.gps_kf_since_solve = 0
         return True
 
+    # ---- the asynchronous loop worker ----------------------------------------
+    def _submit_loop_job(self, snap: dict) -> None:
+        """Queue a detection job; at most one in flight. While the worker is
+        busy the keyframe goes undetected, as a reference timer tick that
+        arrives before the previous one finished."""
+        if self._loop_busy:
+            self._loop_skipped += 1
+            self.loop_stats["skipped_worker_busy"] += 1
+            return
+        if self._loop_thread is None:
+            if self.device.type == "cuda":
+                self._loop_stream = torch.cuda.Stream(self.device)
+            self._loop_queue = queue.Queue()
+            self._loop_thread = threading.Thread(target=self._loop_worker, name="loop-closure",
+                                                 daemon=True)
+            self._loop_thread.start()
+        if self._loop_stream is not None:
+            # the worker's stream starts after the work that made the snapshot
+            snap["ready"] = torch.cuda.Event()
+            snap["ready"].record(torch.cuda.current_stream(self.device))
+        self._loop_busy = True
+        self._loop_queue.put(snap)
+
+    def _loop_job(self, snap: dict):
+        """One job on the worker thread: detection, then on acceptance the
+        loop edge and the global solve on the snapshot's graph. Returns
+        (det, solved (R, p) or None)."""
+        with self.timers.time("loop_detect_async"):
+            det = self._run_loop_detection(snap)
+        if det is None:
+            return None, None
+        g2 = self._add_loop_edge(snap["graph"], det)
+        if g2 is None:
+            return None, None
+        gs = self._solve_graph(g2, timer="graph_opt_async")
+        return det, (gs.R, gs.p)
+
+    def _loop_worker(self) -> None:
+        """The worker thread: runs jobs until it is handed None. Inputs are
+        the snapshot's tensors (never written in place) and copied lists;
+        results go back to the frame's thread, which merges them."""
+        stream = self._loop_stream
+        with cuda_build.counting_as_worker(), (
+                torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()):
+            while True:
+                snap = self._loop_queue.get()
+                if snap is None:
+                    return
+                det, solved, done = None, None, None
+                try:
+                    with cuda_graph.LOCK:
+                        if stream is not None:
+                            stream.wait_event(snap["ready"])
+                            for t in _tensors(snap):
+                                if t.is_cuda:
+                                    t.record_stream(stream)
+                        det, solved = self._loop_job(snap)
+                        if stream is not None:
+                            done = torch.cuda.Event()
+                            done.record(stream)
+                except BaseException as e:  # raised on the frame's thread
+                    self._loop_error = e
+                    det, solved = None, None
+                with self._loop_lock:
+                    self._loop_results.append({"det": det, "solved": solved, "done": done})
+
+    def _apply_pending_loops(self) -> bool:
+        """Merge the worker's finished detections on the frame's thread; a
+        no-op without a worker. Raises a worker exception here."""
+        if self._loop_thread is None:
+            return False
+        if self._loop_error is not None:
+            err, self._loop_error = self._loop_error, None
+            raise err
+        with self._loop_lock:
+            results, self._loop_results = self._loop_results, []
+        applied = False
+        for r in results:
+            self._loop_busy = False
+            det = r["det"]
+            if r["done"] is not None:
+                main = torch.cuda.current_stream(self.device)
+                main.wait_event(r["done"])
+                for t in _tensors((det, r["solved"])):
+                    if t.is_cuda:
+                        t.record_stream(main)
+            if det is not None and det["epoch"] == self.state.compact_epoch:
+                applied = self._accept_loop(det, solved=r["solved"]) or applied
+        return applied
+
+    def drain_loops(self, poll_s: float = 0.002) -> bool:
+        """Block until the worker is idle and every finished detection is
+        merged; True if a loop was applied. Draining after every frame gives
+        the synchronous path bitwise."""
+        applied = False
+        while True:
+            applied = self._apply_pending_loops() or applied
+            if not self._loop_busy:
+                return applied
+            time.sleep(poll_s)
+
+    def close(self) -> None:
+        """Stop the worker thread (a daemon: optional). Finished results stay
+        mergeable through ``drain_loops``."""
+        if self._loop_thread is not None:
+            self._loop_queue.put(None)
+            self._loop_thread.join(timeout=10.0)
+            self._loop_thread = None
+
     # ------------------------------------------------------------------------
     def finalize(self) -> None:
-        """Re-optimize the global graph over the final keyframe set; a no-op
-        when it has no loop edge and no GPS/barometer prior."""
+        """Drain the worker, then re-optimize the global graph over the final
+        keyframe set; a no-op when it has no loop edge and no GPS/barometer
+        prior."""
+        self.drain_loops()
         if self._has_priors_or_loops():
             self.state.graph = self._solve_graph(self.state.graph)
+
+    def predict_highrate(self, imu_dts, imu_acc, imu_gyr, imu_mask):
+        """IMU-rate pose prediction from the last optimized state: the
+        reference's imu_callback -> preinteg_predict -> ``imuPre/odometry``
+        publisher (radar_graph_slam_nodelet.cpp:589-633). A 4x4 pose, or None
+        before the first frame."""
+        from rivslam_tpu_torch.core.navstate import NavState
+        from rivslam_tpu_torch.factors import preintegration as pre
+
+        st = self.state
+        if st.backend is None:
+            return None
+        nav = st.backend.nav
+
+        def t(a, dtype=self.dtype):
+            return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
+
+        p_int = pre.preintegrate(t(imu_dts), t(imu_acc), t(imu_gyr), t(imu_mask, torch.bool),
+                                 nav.bg[-1], nav.ba[-1], self.cfg.imu.gyr_noise, self.cfg.imu.acc_noise)
+        out = pre.predict(NavState(t=st.backend.stamps[-1], R=nav.R[-1], p=nav.p[-1], v=nav.v[-1],
+                                   bg=nav.bg[-1], ba=nav.ba[-1]), p_int, self.cfg.imu.gravity)
+        return lie.se3_matrix(out.R, out.p).cpu().numpy()
 
     def optimized_keyframe_poses(self) -> np.ndarray:
         """[K_used, 4, 4] globally optimized keyframe poses."""

@@ -1,6 +1,10 @@
 """The port's CUDA kernels (K1, K2, K3) on the card, against their plain
 twins, and the paths that launch them.
 
+Also the asynchronous loop worker beside the frame path: a graph capture
+that meets a worker job, the worker's launch counts, and the scan-to-map
+registration's graph pair.
+
 Needs an NVIDIA GPU with nvcc; everywhere else every test skips. Run on the
 card, without the JAX test harness:
 
@@ -9,6 +13,7 @@ card, without the JAX test harness:
 """
 
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -716,3 +721,109 @@ def test_a_failed_registration_capture_raises(dev):
                                  guess, cfg, graphs)
     torch.cuda.synchronize()
     assert float(torch.ones(4, device=dev).sum()) == 4.0
+
+
+# ---- the asynchronous loop worker beside the frame path --------------------------
+
+# tests/test_torch_engine_loop.py's loop course and configuration (66 frames
+# at capacity 256, one loop closed near the end), rebuilt here without JAX
+LOOP_COURSE = dict(seed=21, radius=3.0, omega=2.0 / 3.0, dt=0.15, n_frames=66, capacity=256,
+                   world_points=20000, extent=30.0)
+LOOP_IMU_CAP = 32
+
+
+def _loop_cfg(capacity=256):
+    cfg = presets.get("cp")
+    return dataclasses.replace(
+        cfg,
+        floor=dataclasses.replace(cfg.floor, floor_pts_thresh=50 * capacity // 1024),
+        registration=dataclasses.replace(cfg.registration, use_pallas_correspondence=True),
+        backend=dataclasses.replace(cfg.backend, window_size=3, max_solver_iterations=4),
+        loop=dataclasses.replace(
+            cfg.loop, accum_distance_thresh=8.0, min_loop_interval_dist=2.0,
+            max_yaw_difference_deg=45.0, odom_drift_xy=0.15, sc_dist_thresh=0.7,
+            keyframe_capacity=64, loop_capacity=8,
+        ),
+    )
+
+
+def _async(cfg):
+    return dataclasses.replace(cfg, loop=dataclasses.replace(cfg.loop, async_loop=True))
+
+
+def test_capture_waits_for_a_worker_job(dev, monkeypatch):
+    """A graph capture started while a worker job runs waits for it (the
+    capture lock), and both finish: the job's kernels neither fail the
+    capture nor land in it."""
+    from rivslam_tpu_torch.core import cuda_graph
+
+    eng = pipeline.Engine(_async(_loop_cfg()), device=dev)
+    started, release = threading.Event(), threading.Event()
+    done = []
+
+    def busy_job(snap):
+        started.set()
+        x = torch.randn(256, 256, device=dev)
+        for _ in range(50):
+            x = torch.tanh(x @ x.T * 1e-3)
+        release.wait(timeout=10.0)
+        done.append(float(x.sum()))  # a host read on the worker's stream
+        return None
+
+    monkeypatch.setattr(eng, "_run_loop_detection", busy_job)
+    eng._submit_loop_job({"k": 1, "epoch": 0})
+    assert started.wait(timeout=10.0)
+    a = torch.ones(64, device=dev)
+    timer = threading.Timer(0.3, release.set)
+    timer.start()
+    g = cuda_graph.Graphed("capture beside a worker job", lambda t: (t * 2.0,), [a])
+    assert done, "the capture did not wait for the worker's job"
+    assert torch.equal(g.replay()[0], a * 2.0)
+    eng.drain_loops()
+    eng.close()
+
+
+def test_worker_launches_are_counted_apart(dev):
+    """The worker's K1/K3 launches go to ``worker_launches``, the frame
+    path's to ``launches``, none lost: a free-running async run over the
+    loop course closes its loop with worker launches counted, and its frame
+    path counts as the synchronous run's."""
+    from rivslam_tpu_torch.ops import nn_argmin, nn_gather
+
+    seq, _ = synthetic.simulate_sequence(**LOOP_COURSE)
+    cap = LOOP_COURSE["capacity"]
+    cfg = _loop_cfg(cap)
+    counts = {}
+    for name, c in (("sync", cfg), ("async", _async(cfg))):
+        eng = pipeline.Engine(c, device=dev)
+        for fn in (nn_gather.fused_gather, nn_argmin.nearest_neighbor):
+            fn.launches = fn.worker_launches = 0
+        datasets.replay(eng, seq, cap, LOOP_IMU_CAP, progress=lambda i, n: eng.drain_loops())
+        counts[name] = {fn.__name__: (fn.launches, fn.worker_launches)
+                        for fn in (nn_gather.fused_gather, nn_argmin.nearest_neighbor)}
+        eng.close()
+    assert counts["sync"]["fused_gather"][1] == 0
+    assert counts["async"]["fused_gather"][1] > 0 and counts["async"]["nearest_neighbor"][1] > 0
+    for fn in ("fused_gather", "nearest_neighbor"):
+        assert sum(counts["async"][fn]) == counts["sync"][fn][0], (fn, counts)
+
+
+def test_scan_to_map_graph_pair(dev):
+    """The garden preset's Engine captures a second registration graph pair
+    for the scan-to-map shape (N against max_submap_frames x N), and K1 is
+    credited through both pairs' replays."""
+    from rivslam_tpu_torch.ops import nn_gather
+
+    cfg = presets.get("garden")
+    cfg = dataclasses.replace(cfg, registration=dataclasses.replace(
+        cfg.registration, use_pallas_correspondence=True))
+    seq, _ = synthetic.simulate_sequence(seed=21, radius=8.0, omega=0.25, dt=0.25, n_frames=8,
+                                         capacity=1024, world_points=20000, extent=30.0)
+    eng = pipeline.Engine(cfg, device=dev)
+    nn_gather.fused_gather.launches = 0
+    datasets.replay(eng, seq, 1024, 64)
+    shapes = sorted(eng.reg_graphs.launches_by_shape())
+    S = cfg.odometry.max_submap_frames
+    assert shapes == [(1, 1024, 1024), (1, 1024, S * 1024)], shapes
+    credited = sum(n.get("K1", 0) for n in eng.reg_graphs.launches_by_shape().values())
+    assert credited == nn_gather.fused_gather.launches > 0

@@ -4,8 +4,8 @@ One short synthetic course runs through both Engines with the same seed and
 the JAX engine's own RANSAC draws injected into the port (the ``uniforms``
 seam), in float64 and in float32, frame by frame. Also: the simulator, the
 sequence container, replay and ATE copies, the parts of the reference
-Engine the port still leaves out (they raise), and the GPS and barometer
-priors of the keyframe graph.
+Engine that earlier slices left out (they now run), and the GPS and
+barometer priors of the keyframe graph.
 
 Run as a script (``PYTHONPATH=. python tests/test_torch_engine.py``), it
 prints the JAX engine's full-trajectory ATE on chip_smoke.py's engine course
@@ -164,27 +164,34 @@ def test_engine_draws_come_from_its_seed():
 
 @pytest.mark.parametrize("what", ["loop", "baro_prior", "scan_to_map", "gps", "cuda"])
 def test_engine_refuses_what_this_slice_leaves_out(monkeypatch, what):
-    """What the port still leaves out raises, naming its ROADMAP item: the
-    asynchronous loop worker ("loop") and scan-to-map odometry. A CUDA
-    engine without a card refuses to fall back. The barometer and GPS
-    priors were refused before the keyframe graph was ported; now each
-    lands on the keyframes as a diagonal translation prior."""
+    """A CUDA engine without a card refuses to fall back. What earlier
+    slices refused now runs: the asynchronous loop worker ("loop") and
+    scan-to-map odometry run a few frames; the barometer and GPS priors land
+    on the keyframes as a diagonal translation prior."""
     cfg = _cfg(presets)
     if what == "cuda":
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             pipeline.Engine(cfg)
         return
+    seq, _ = synthetic.simulate_sequence(**dict(COURSE, n_frames=3 if what in ("loop", "scan_to_map") else 2))
     if what in ("loop", "scan_to_map"):
         change = {
-            "loop": ("loop", dict(async_loop=True)),
-            "scan_to_map": ("odometry", dict(enable_scan_to_map=True)),
+            "loop": ("loop", dict(enable=True, async_loop=True, num_exclude_recent=0)),
+            "scan_to_map": ("odometry", dict(enable_scan_to_map=True, max_submap_frames=2)),
         }[what]
         cfg = dataclasses.replace(cfg, **{change[0]: dataclasses.replace(getattr(cfg, change[0]), **change[1])})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pipeline.Engine(cfg, device="cpu")
+        eng = pipeline.Engine(cfg, device="cpu")
+        outs = datasets.replay(eng, seq, CAP, IMU_CAP)
+        assert all(np.isfinite(o["pose"]).all() for o in outs)
+        assert eng.state.kf_count == sum(o["is_keyframe"] for o in outs) >= 2
+        if what == "loop":  # the worker ran a detection on the second keyframe
+            assert eng._loop_thread is not None and not eng._loop_busy
+            assert eng.loop_stats["detections_run"] + eng.loop_stats["skipped_worker_busy"] >= 1
+            eng.close()
+        else:
+            assert bool(eng.state.odo.kf_valid[-2:].all())  # two keyframes in the submap
         return
-    seq, _ = synthetic.simulate_sequence(**dict(COURSE, n_frames=2))
     if what == "gps":
         seq.gps_stamps = seq.frame_stamps.copy()
         seq.gps_utm = np.array([[100.0, 200.0, 3.0], [100.3, 200.0, 3.0]])

@@ -399,19 +399,17 @@ PRESETS = ["cp", "garden", "hugin", "long", "mine", "ntu4dradlm", "nyl", "sjtu"]
 
 @pytest.mark.parametrize("name", PRESETS)
 def test_every_preset_runs_as_shipped(name):
-    """The Engine takes each preset unmodified (loop closure on) and runs a
-    few frames on the CPU at small capacity; the presets that turn on
-    scan-to-map odometry (nyl, garden) still raise, naming ROADMAP.md."""
+    """The Engine takes each preset unmodified (loop closure on; scan-to-map
+    odometry on for nyl and garden) and runs a few frames on the CPU at
+    small capacity."""
     from rivslam_tpu_torch import pipeline, presets
+    from rivslam_tpu_torch.frontend import scan2map
     from rivslam_tpu_torch.io import datasets
 
     assert presets.names() == PRESETS  # every preset is one case here
     cfg = presets.get(name)
-    if cfg.odometry.enable_scan_to_map:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pipeline.Engine(cfg, device="cpu")
-        return
     assert cfg.loop.enable and not cfg.loop.async_loop
+    assert cfg.odometry.enable_scan_to_map == (name in ("nyl", "garden"))
     seq, _ = synthetic.simulate_sequence(seed=3, n_frames=2, capacity=128, world_points=4000,
                                          extent=30.0)
     eng = pipeline.Engine(cfg, device="cpu")
@@ -419,3 +417,4 @@ def test_every_preset_runs_as_shipped(name):
     assert all(np.isfinite(o["pose"]).all() for o in outs)
     assert eng.state.kf_count == sum(o["is_keyframe"] for o in outs) >= 1
     assert eng.trajectory()[1].shape == (2, 4, 4)
+    assert isinstance(eng.state.odo, scan2map.SubmapOdometryState) == cfg.odometry.enable_scan_to_map
