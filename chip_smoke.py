@@ -63,12 +63,12 @@ Phases, each announced by a flushed "== phase" line:
               engine's inputs at every split S, beside the floor (an empty
               kernel on the same clustered grid), in a CUDA graph; K1 at the
               scan-to-map shape (B=1, N=1024, M=5120) in a CUDA graph;
- 13. engine   the "garden" preset as shipped (scan-to-map odometry, loop
-     garden   closure on, K1 on) over the 260-frame "garden" validation
-              course, engine seed 0; then the garden course's configuration
-              (validation.build_course_cfg("garden"), K1 on: no deskew or
+ 13. engine   the 260-frame "garden" validation course under its
+     garden   configuration (validation.build_course_cfg("garden"), K1 on:
+              the garden preset, scan-to-map odometry, without deskew or
               under-floor removal for the instantaneous synthetic scans,
-              where loops close often): ATE corrected and uncorrected, each
+              where loops close often; the preset as shipped runs in
+              profile_torch.py --digest), engine seed 0: ATE corrected and uncorrected, each
               held to 1.5x the JAX engine's, loops closed (at least 1),
               keyframes, per-frame latency (median, p95, max, frames over
               the 250 ms frame interval), K1 launches at each registration
@@ -83,11 +83,28 @@ Phases, each announced by a flushed "== phase" line:
               course written to .npz and .rivbin: --preset garden
               --async-loop --ckpt, then --resume of that checkpoint; the TUM
               outputs checked.
+ 16. replay   Engine.replay_sequence over the cp course (the cp preset, loop
+              closure off, K1 on), launch counts read around it: its
+              trajectory digest must equal the process_frame loop-off run's
+              on the same frames and seed (driven here, held to the JAX
+              engine's loop-off ATE); frames/s beside the per-frame driver's;
+              the host syncs of each frame step (torch.cuda.set_sync_debug_mode)
+              in the replay and in process_frame on 20 frames; K2 through an
+              exact-path replay;
+ 17. fleet    Engine.replay_fleet of two 40-frame stretches of the cp course
+              (B=2): each sequence's digest must equal its single replay on
+              an Engine seeded with its fleet seed; per-sequence frames/s;
+ 18. voxel    the cp course through the validation harness's configuration
+              with method VGICP and with NDT_OMP (loop closure on): ATE held
+              to 1.5x the JAX engine's, loops, latency, digest;
+ 19. CLI      python -m rivslam_tpu_torch --device cuda --device-replay on
+     replay   16 cp frames (.npz, --map): the TUM output and the frames/s line.
 
 Any failed check raises, and the script then exits non-zero without a
 result. The line before the last is a JSON object listing the kernels, each
-at the engine's shape (B=1) and at B=256, and K1 at the scan-to-map shape;
-the last line is
+at the engine's shape (B=1) and at B=256, and K1 at the scan-to-map shape,
+with their launches in the replay (phase 16; K2's in the exact replay; K1 at
+the scan-to-map shape in the garden course run); the last line is
 {"ok": true, "device": {...}}. It needs a CUDA device and the
 repository beside it: there is no CPU fallback.
 """
@@ -103,6 +120,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -142,13 +160,27 @@ REF = {
         0: {"ate_m": 0.24116977638213324, "uncorrected_ate_m": 0.7587948732727486, "keyframes": 78, "loops": 2},
     },
     # `PYTHONPATH=.:tests python tests/test_torch_scan2map.py`: over the
-    # garden course, the garden preset as shipped (scan-to-map on), and the
-    # garden course's configuration (validation.build_course_cfg)
+    # garden course, the garden preset as shipped (scan-to-map on; held in
+    # profile_torch.py --digest), and the garden course's configuration
+    # (validation.build_course_cfg)
     "garden": {
         0: {"ate_m": 23.307262101356596, "uncorrected_ate_m": 25.266290100142566, "keyframes": 230, "loops": 2},
     },
     "garden-course": {
         0: {"ate_m": 0.6870941896367062, "uncorrected_ate_m": 3.773917581948221, "keyframes": 258, "loops": 19},
+    },
+    # `PYTHONPATH=. python tests/test_torch_engine.py`: the cp preset with loop
+    # closure off (phase 16's per-frame run; the replay has no loop stage)
+    "loop-off": {
+        0: {"ate_m": 0.7365842276827688, "uncorrected_ate_m": 0.7365842276827688, "keyframes": 75, "loops": 0},
+    },
+    # `PYTHONPATH=.:tests python tests/test_torch_vgicp.py`: the cp course under
+    # the validation harness's configuration with method VGICP / NDT_OMP
+    "vgicp": {
+        0: {"ate_m": 0.4053913932168431, "uncorrected_ate_m": 1.1007294140769908, "keyframes": 79, "loops": 2},
+    },
+    "ndt": {
+        0: {"ate_m": 1.4667459164161616, "uncorrected_ate_m": 2.175324503480315, "keyframes": 76, "loops": 1},
     },
 }
 MAX_ATE_RATIO = 1.5
@@ -156,7 +188,9 @@ MAX_ATE_RATIO = 1.5
 GARDEN_COURSE = dict(seed=21, radius=15.0, omega=0.2, dt=0.25, n_frames=260, capacity=1024,
                      world_points=24000, extent=45.0)
 GARDEN_HEAD = 12  # phase 4's garden frames, for a submap of several keyframes
-CLI_FRAMES = 16  # phase 15's course
+CLI_FRAMES = 16  # phase 15's course, and phase 19's
+SYNC_FRAMES = 20  # phase 16: the frames whose host syncs are counted
+FLEET_FRAMES = 40  # phase 17: the length of each fleet sequence
 FRAME_INTERVAL_MS = 250.0  # the radar's frame interval
 CPU_FRAMES = 8
 # card vs CPU on the first frames: float32 rounding of the isolated points'
@@ -575,34 +609,68 @@ def submap_k1_inputs(eng, SENTINEL, dev):
             feats_t[None].contiguous()), ties
 
 
-def course_cfg(presets, course, **reg):
-    """What the JAX package's eval/validation.build_course_cfg(course,
-    reg_overrides=reg) builds: the course's preset for instantaneous
-    synthetic scans (no deskew or under-floor removal), FAST_APDGICP with
-    ``reg``, ego-velocity guesses with the EGOVEL fallback, loop gates
-    40 m / 5 m."""
-    cfg = presets.get(course)
-    r = dataclasses.replace
-    return r(
-        cfg,
-        preprocess=r(cfg.preprocess, enable_deskew=False, enable_under_floor_removal=False),
-        registration=r(cfg.registration, method="FAST_APDGICP", **reg),
-        backend=r(cfg.backend, max_solver_iterations=8),
-        loop=r(cfg.loop, enable=True, accum_distance_thresh=min(cfg.loop.accum_distance_thresh, 40.0),
-               min_loop_interval_dist=5.0),
-        odometry=r(cfg.odometry, use_ego_vel=True, thresholding_fallback="EGOVEL"),
-    )
+def exact_cfg():
+    """The cp course's configuration with the exact registration, as the
+    port's validation harness builds it (eval/validation.build_course_cfg)."""
+    from rivslam_tpu_torch.eval import validation
+
+    return validation.build_course_cfg("cp", reg_overrides={"use_fast_path": False})
 
 
-def exact_cfg(presets):
-    """The cp course's configuration with the exact registration."""
-    return course_cfg(presets, "cp", use_fast_path=False)
-
-
-def garden_course_cfg(presets):
+def garden_course_cfg():
     """The garden course's configuration (scan-to-map on, as the garden
     preset ships it), K1 on."""
-    return course_cfg(presets, "garden", use_pallas_correspondence=True)
+    from rivslam_tpu_torch.eval import validation
+
+    return validation.build_course_cfg("garden", reg_overrides={"use_pallas_correspondence": True})
+
+
+def voxel_cfg(method):
+    """The cp course's configuration with a voxel registration (VGICP or
+    NDT_OMP), as the validation harness builds it."""
+    from rivslam_tpu_torch.eval import validation
+
+    return validation.build_course_cfg("cp", method)
+
+
+def count_syncs(eng, drive) -> tuple[list[int], list[int], int]:
+    """Run ``drive()`` with torch's sync debug mode on and count the
+    synchronizing CUDA calls (host reads, synchronous copies): inside each
+    call of ``eng``'s frame step (``Engine._frame_step``, which
+    ``process_frame`` and ``replay_sequence`` share), the running count at
+    the end of each, and the run's total."""
+    per_step, at_end = [], []
+    step = eng._frame_step
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def syncs():
+            return sum("synchroniz" in str(w.message) for w in caught)
+
+        def counted(*args, **kw):
+            n0 = syncs()
+            out = step(*args, **kw)
+            at_end.append(syncs())
+            per_step.append(at_end[-1] - n0)
+            return out
+
+        eng._frame_step = counted
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            drive()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            del eng._frame_step
+        return per_step, at_end, syncs()
+
+
+def digest_of(poses: np.ndarray) -> str:
+    """drive_engine's digest of a loop-free run: its corrected and
+    uncorrected trajectories are the same poses."""
+    h = hashlib.sha256()
+    for _ in range(2):
+        h.update(np.ascontiguousarray(poses).tobytes())
+    return h.hexdigest()
 
 
 def run_main(apdgicp, cfg, data, guess, dev):
@@ -966,7 +1034,8 @@ def main() -> None:
                   f"engine {key}: uncorrected ATE {ates[False]} m > {MAX_ATE_RATIO} x {ref['uncorrected_ate_m']} m")
         return eng, outs, n, {"ate_m": ates[True], "uncorrected_ate_m": ates[False], "keyframes": n_kf,
                               "loops": loops, "median_ms": float(np.median(wall_ms[1:])),
-                              "wall_ms": wall_ms[1:], "digest": digest.hexdigest(), "peak_gib": peak_gib}
+                              "wall_ms": wall_ms[1:], "digest": digest.hexdigest(), "peak_gib": peak_gib,
+                              "engine_s": engine_s}
 
     phase("9 engine: the cp preset as shipped, loop closure on, engine seeds "
           + ", ".join(map(str, ENGINE_SEEDS)))
@@ -1001,7 +1070,7 @@ def main() -> None:
     check(gap <= tol, f"card and CPU differ by {gap} > {tol}")
 
     phase("10 engine: exact registration (use_fast_path=False)")
-    eng_x, _, exact_counts, _ = drive_engine("exact", exact_cfg(presets))
+    eng_x, _, exact_counts, _ = drive_engine("exact", exact_cfg())
     check(exact_counts["K2"] > 0, "engine exact: K2 never launched")
 
     phase("11 K3 against its plain twin")
@@ -1169,22 +1238,20 @@ def main() -> None:
             f"K3 {counts['K3']} ({counts['K3'] / n:.3f} a frame)")
         return by_shape
 
-    phase("13 engine: the garden preset as shipped (scan-to-map odometry), loop closure on; then the "
-          "garden course's configuration")
+    phase("13 engine: the garden course's configuration (scan-to-map odometry), loop closure on")
     gn = garden_seq.num_frames
-    gardens = {}
-    for name, cfg in (("garden", garden_cfg(presets)), ("garden-course", garden_course_cfg(presets))):
-        g_eng, _, g_counts, gardens[name] = drive_engine(name, cfg, course=(garden_seq, garden_gt))
-        check(gardens[name]["loops"] >= 1, f"engine {name}: no loop closed")
-        check(g_counts["K1"] > 0 and g_counts["K3"] > 0, f"engine {name}: K1 or K3 never launched")
-        by_shape = k1_by_shape(name, g_eng, g_counts, gn)
-        s2m_shape = (1, ENGINE_CAPACITY, g_eng.cfg.odometry.max_submap_frames * ENGINE_CAPACITY)
-        check(by_shape.get(s2m_shape, {}).get("K1", 0) > 0, f"engine {name}: K1 never launched at the "
-              "scan-to-map shape")
-        say(f"engine {name}: per-frame latency by wall clock {latency(gardens[name])} {card}")
-        if name == "garden":
-            s2m_launches = by_shape[s2m_shape]["K1"]
-        del g_eng
+    # the shipped garden preset runs in profile_torch.py --digest
+    name = "garden-course"
+    g_eng, _, g_counts, sync = drive_engine(name, garden_course_cfg(), course=(garden_seq, garden_gt))
+    check(sync["loops"] >= 1, f"engine {name}: no loop closed")
+    check(g_counts["K1"] > 0 and g_counts["K3"] > 0, f"engine {name}: K1 or K3 never launched")
+    by_shape = k1_by_shape(name, g_eng, g_counts, gn)
+    s2m_shape = (1, ENGINE_CAPACITY, g_eng.cfg.odometry.max_submap_frames * ENGINE_CAPACITY)
+    check(by_shape.get(s2m_shape, {}).get("K1", 0) > 0, f"engine {name}: K1 never launched at the "
+          "scan-to-map shape")
+    say(f"engine {name}: per-frame latency by wall clock {latency(sync)} {card}")
+    s2m_launches = by_shape[s2m_shape]["K1"]
+    del g_eng
 
     phase("14 async loop worker: drained (cp, against phase 9) and free-running (the garden course)")
     a_eng, _, _, drained = drive_engine("preset drained async", async_cfg(preset_cfg(presets)),
@@ -1196,9 +1263,8 @@ def main() -> None:
     check(drained["digest"] == seeds[ENGINE_SEED]["digest"],
           "the drained async run's trajectories differ from the synchronous run's (phase 9)")
     check(sum(worker.values()) > 0, "drained async run: the worker launched no kernel")
-    sync = gardens["garden-course"]
     f_eng, _, f_counts, free = drive_engine("garden-course free-running async",
-                                            async_cfg(garden_course_cfg(presets)),
+                                            async_cfg(garden_course_cfg()),
                                             course=(garden_seq, garden_gt), hold=False)
     worker = read_worker_counts()
     f_eng.close()
@@ -1249,27 +1315,142 @@ def main() -> None:
             f"{np.abs(P2[:CLI_FRAMES] - P1).max():.3e}; step across the resume "
             f"{np.linalg.norm(P2[CLI_FRAMES, :3, 3] - P2[CLI_FRAMES - 1, :3, 3]):.3f} m")
 
+    phase("16 whole-sequence replay: the cp course, loop closure off, against the process_frame loop")
+    rp_cfg = loop_off_cfg(presets)
+    pf_eng, _, pf_counts, pf = drive_engine("loop-off", rp_cfg)
+    del pf_eng
+    stacked = datasets.stack_sequence(seq, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY)
+    rp_eng = pipeline.Engine(rp_cfg, seed=ENGINE_SEED, device=dev)
+    reg = rp_eng.reg_graphs
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    rep = rp_eng.replay_sequence(stacked)  # ends with its copy to the host
+    first_s = time.perf_counter() - t0
+    rp_counts = read_counts()
+    rp_reads = reg.reads
+    rp_digest = digest_of(rep["pose"])
+    check(rep["pose"].shape == (n_frames, 4, 4) and np.isfinite(rep["pose"]).all(), "replay: bad poses")
+    say(f"replay: {n_frames} frames in {first_s:.3f} s = {n_frames / first_s:.2f} frames/s "
+        f"({1e3 * first_s / n_frames:.3f} ms a frame); the process_frame loop-off run of the same frames: "
+        f"{pf['engine_s']:.3f} s = {n_frames / pf['engine_s']:.2f} frames/s, median frame {pf['median_ms']:.3f} "
+        f"ms (both with their graph captures; steady state: python -m rivslam_tpu_torch.eval.latency) {card}")
+    say(f"replay: launches {rp_counts} ({ {k: round(v / n_frames, 3) for k, v in rp_counts.items()} } a frame; "
+        f"process_frame loop-off: {pf_counts}); registration host reads {rp_reads} "
+        f"({rp_reads / n_frames:.3f} a frame); window iterations a frame "
+        f"{rep['solver_iterations'][1:].mean():.3f}; keyframes {int(rep['is_keyframe'].sum())}, converged share "
+        f"{rep['converged'][1:].mean():.4f}")
+    say(f"replay digest {rp_digest[:16]}, process_frame loop-off digest {pf['digest'][:16]}")
+    check(rp_digest == pf["digest"], "the replay's trajectory differs from the process_frame loop-off run's")
+    check(rp_counts["K1"] > 0 and rp_counts["K3"] > 0, "replay: K1 or K3 never launched")
+    # the host syncs of each frame step, on fresh Engines with the same seed
+    # (the same draws and iterations, frame by frame; captures on frames 0-1)
+    head = frames(seq, 0, SYNC_FRAMES)
+    e_pf = pipeline.Engine(rp_cfg, seed=ENGINE_SEED, device=dev)
+    pf_steps, pf_at, pf_all = count_syncs(
+        e_pf, lambda: datasets.replay(e_pf, head, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY))
+    e_rp = pipeline.Engine(rp_cfg, seed=ENGINE_SEED, device=dev)
+    head_stack = datasets.stack_sequence(head, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY)
+    rp_steps, rp_at, rp_all = count_syncs(e_rp, lambda: e_rp.replay_sequence(head_stack))
+    steady = slice(2, SYNC_FRAMES)
+    per_frame = {name: (total - at[1]) / (SYNC_FRAMES - 2)
+                 for name, total, at in (("replay", rp_all, rp_at), ("process_frame", pf_all, pf_at))}
+    say(f"host syncs (torch.cuda.set_sync_debug_mode), frames 2..{SYNC_FRAMES - 1}: a frame step, replay mean "
+        f"{np.mean(rp_steps[steady]):.2f} ({rp_steps}), process_frame mean {np.mean(pf_steps[steady]):.2f} "
+        f"({pf_steps}); a frame, from the end of frame 1's step to the end of the run: replay "
+        f"{per_frame['replay']:.2f} (its copy to the host at the end included), process_frame "
+        f"{per_frame['process_frame']:.2f} (its outputs and the keyframe insertion included)")
+    check(len(rp_steps) == len(pf_steps) == SYNC_FRAMES and all(a <= b for a, b in zip(rp_steps, pf_steps)),
+          "replay: a frame step reads the host more often than process_frame's")
+    del e_pf, e_rp
+    # K2 on the replay's path: the exact registration, loop off, 16 frames
+    x_cfg = dataclasses.replace(exact_cfg(), loop=dataclasses.replace(exact_cfg().loop, enable=False))
+    x_eng = pipeline.Engine(x_cfg, seed=ENGINE_SEED, device=dev)
+    x_stack = datasets.stack_sequence(frames(seq, 0, CLI_FRAMES), ENGINE_CAPACITY, ENGINE_IMU_CAPACITY)
+    torch.cuda.synchronize()
+    zero_counts()
+    x_rep = x_eng.replay_sequence(x_stack)
+    x_counts = read_counts()
+    say(f"exact replay, {CLI_FRAMES} frames: launches {x_counts}; keyframes {int(x_rep['is_keyframe'].sum())}")
+    check(x_counts["K2"] > 0 and x_counts["K3"] > 0 and np.isfinite(x_rep["pose"]).all(),
+          "exact replay: K2 or K3 never launched, or bad poses")
+    del x_eng
+
+    phase(f"17 replay_fleet: B=2 sequences of {FLEET_FRAMES} cp frames, each against its single replay")
+    fl_stacks = [datasets.stack_sequence(frames(seq, a, a + FLEET_FRAMES), ENGINE_CAPACITY, ENGINE_IMU_CAPACITY)
+                 for a in (0, FLEET_FRAMES)]
+    batch = {k: np.stack([st_[k] for st_ in fl_stacks]) for k in fl_stacks[0]}
+    fl_eng = pipeline.Engine(rp_cfg, seed=ENGINE_SEED, device=dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    fleet = fl_eng.replay_fleet(batch)
+    fleet_s = time.perf_counter() - t0
+    fl_counts = read_counts()
+    base = int(torch.randint(0, 2**62, (), generator=torch.Generator().manual_seed(ENGINE_SEED)))
+    for b in range(2):
+        single = pipeline.Engine(rp_cfg, seed=pipeline.fleet_seed(base, b), device=dev)
+        t0 = time.perf_counter()
+        one = single.replay_sequence(fl_stacks[b])
+        one_s = time.perf_counter() - t0
+        d_f, d_1 = digest_of(fleet["pose"][b]), digest_of(one["pose"])
+        say(f"fleet sequence {b}: digest {d_f[:16]}, single replay {d_1[:16]} ({one_s:.3f} s, captures included)")
+        check(d_f == d_1, f"fleet sequence {b} differs from its single replay")
+        del single
+    say(f"fleet B=2 x {FLEET_FRAMES} frames: {fleet_s:.3f} s (captures included) = {FLEET_FRAMES / fleet_s:.2f} "
+        f"frames/s per sequence, {2 * FLEET_FRAMES / fleet_s:.2f} in all; launches {fl_counts} {card}")
+    check(fl_counts["K1"] > 0 and fl_counts["K3"] > 0, "fleet: K1 or K3 never launched")
+    del fl_eng
+
+    phase("18 engine: the cp course through VGICP and NDT_OMP (validation configuration, loop closure on)")
+    for key, method in (("vgicp", "VGICP"), ("ndt", "NDT_OMP")):
+        v_eng, _, v_counts, v = drive_engine(key, voxel_cfg(method))
+        replays = v_eng.reg_graphs.replays
+        say(f"engine {key}: per-frame latency by wall clock {latency(v)}; registration graph replays "
+            f"{replays} ({replays / n_frames:.3f} a frame) {card}")
+        check(v_counts["K3"] > 0 and v_counts["K1"] == 0 and v_counts["K2"] == 0,
+              f"engine {key}: K3 not launched, or a GICP kernel was")
+        check(replays > 0, f"engine {key}: the voxel registration did not replay its CUDA graphs")
+        del v_eng
+
+    phase("19 CLI: python -m rivslam_tpu_torch --device cuda --device-replay")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = lambda name: os.path.join(tmp, name)  # noqa: E731
+        frames(seq, 0, CLI_FRAMES).save(path("cp.npz"))
+        args = ["--seq", path("cp.npz"), "--device-replay", "--map", path("cp.pcd"), "--out", path("cp.txt")]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "rivslam_tpu_torch", "--device", "cuda", "--preset", "cp"]
+                              + args, capture_output=True, text=True, timeout=600, cwd=root, env=env)
+        check(proc.returncode == 0, f"CLI --device-replay failed ({proc.returncode}):\n{proc.stdout[-3000:]}\n"
+              f"{proc.stderr[-3000:]}")
+        ts_r, P_r = tum.load_tum(path("cp.txt"))
+        check(len(ts_r) == CLI_FRAMES and np.isfinite(P_r).all(), "CLI --device-replay: bad TUM trajectory")
+        say(f"CLI --device-replay: exit 0 in {time.perf_counter() - t0:.1f} s; "
+            + " | ".join(ln for ln in (proc.stdout + proc.stderr).splitlines()
+                         if ln.startswith(("wrote", "device replay"))) + f" {card}")
+
     torch.cuda.synchronize()
     say(f"wall time {time.perf_counter() - t_start:.1f} s")
 
     # each kernel at the engine's shape (B=1) and at B=256 (the scan-match
     # pairs), K1 at the scan-to-map shape; launches: the kernel's count over
-    # its engine run (the garden run's at the scan-to-map shape)
+    # the replay (phase 16; K2's over the exact replay), K1 at the
+    # scan-to-map shape over the garden course run
     batch = "scan-match pairs"
     kernels = [
         {"name": f"K1 fused_gather ({shape})", "route": "cuda",
          "source": "rivslam_tpu_torch/csrc/nn_gather.cu", "replaces": "rivslam_tpu/ops/pallas_nn.py:179",
-         "launches": eng_counts["K1"], "max_abs_err": k1_err, **t}
+         "launches": rp_counts["K1"], "max_abs_err": k1_err, **t}
         for shape, t in (("engine B=1", k1), ("B=256", timing[("K1", batch)]))
     ] + [
         {"name": f"K2 fused_correspondence ({shape})", "route": "cuda",
          "source": "rivslam_tpu_torch/csrc/nn_corr.cu", "replaces": "rivslam_tpu/ops/pallas_nn.py:74",
-         "launches": exact_counts["K2"], "max_abs_err": k2_err, **t}
+         "launches": x_counts["K2"], "max_abs_err": k2_err, **t}
         for shape, t in (("exact engine B=1", k2), ("B=256", timing[("K2", batch)]))
     ] + [
         {"name": f"K3 nearest_neighbor ({shape})", "route": "cuda",
          "source": "rivslam_tpu_torch/csrc/nn_argmin.cu", "replaces": "rivslam_tpu/ops/pallas_nn.py:29",
-         "launches": eng_counts["K3"], "max_abs_err": k3_err, **t}
+         "launches": rp_counts["K3"], "max_abs_err": k3_err, **t}
         for shape, t in (("engine B=1", k3), ("B=256", timing[("K3", batch)]))
     ] + [
         {"name": "K1 fused_gather (scan-to-map B=1, M=5120)", "route": "cuda",

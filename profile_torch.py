@@ -2,6 +2,7 @@
 
     python3 profile_torch.py [--cov KNN|RBF] [--k1 on|off]
     python3 profile_torch.py --engine [--loop | --garden [--async-loop]] [--warmup 8] [--frames 4]
+    python3 profile_torch.py --replay [--frames 20]
     python3 profile_torch.py --kernels [--root DIR]
     python3 profile_torch.py --digest [--root DIR]
 
@@ -36,15 +37,22 @@ the first loop candidates come
 after ~100 frames (50 m of travel), so ``--loop --warmup 100 --frames 20``
 traces the loop closure.
 
+``--replay`` traces ``Engine.replay_sequence`` over the cp course's first
+``--frames`` frames (loop closure off, K1 on), after a replay that captures
+the CUDA graphs: wall and device busy time, the device's idle share, kernels
+on the device and launched by the host, graph replays, registration host
+reads and host ms by stage, per frame.
+
 ``--kernels`` times K1, K2 and K3 through the port's public wrappers on
 seeded inputs: B=256 random clouds (every target valid, F = 9 and 12; 90%
 valid, F = 9) by CUDA events, and the engine's shape (B=1, N=M=1024, 30%
 valid, F = 12) as device time in a CUDA graph. ``--digest`` runs the engine
 configurations of chip_smoke.py phases 9-10 (the cp preset for engine seeds
-0, 1 and 2, the exact path for seed 0), prints the sha256 of each run's
-corrected and uncorrected trajectories, as chip_smoke.py does, and holds
-each run's ATE to 1.5x the JAX engine's for its seed (chip_smoke.py's REF;
-seeds 1 and 2 are held here only, since chip_smoke.py runs seed 0). With ``--root
+0, 1 and 2, the exact path for seed 0) and the garden preset as shipped
+over the garden course, prints the sha256 of each run's corrected and
+uncorrected trajectories, as chip_smoke.py does, and holds each run's ATE
+to 1.5x the JAX engine's for its seed (chip_smoke.py's REF; cp seeds 1 and
+2 and the shipped garden preset are held here only). With ``--root
 DIR`` both import the port from the checkout at DIR instead of this one: run
 two checkouts in one call, in turns (a, b, b, a), to compare them on one card.
 
@@ -72,6 +80,7 @@ def main() -> None:
     ap.add_argument("--cov", choices=("KNN", "RBF"), default="KNN")
     ap.add_argument("--k1", choices=("on", "off"), default="on")
     ap.add_argument("--engine", action="store_true", help="profile the per-frame engine")
+    ap.add_argument("--replay", action="store_true", help="profile Engine.replay_sequence (--frames frames)")
     ap.add_argument("--loop", action="store_true", help="with --engine: loop closure on")
     ap.add_argument("--garden", action="store_true",
                     help="with --engine: the garden course, scan-to-map and loop closure on")
@@ -91,6 +100,8 @@ def main() -> None:
         return time_kernels(args)
     if args.digest:
         return digest_engine(args)
+    if args.replay:
+        return profile_replay(args)
     if args.engine:
         return profile_engine(args)
     from rivslam_tpu_torch.core.config import RegistrationConfig
@@ -169,6 +180,66 @@ def _device_kernels(prof):
     return kernels, sum(e.device_time_total for e in kernels) / 1e3, by_name
 
 
+def _host_side(prof):
+    """(host ms by Engine stage scope, kernels launched by the host, CUDA
+    graph launches) of a trace."""
+    stage_ms = {k: 0.0 for k in STAGES}
+    host_launches = graph_launches = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        if e.name in stage_ms:
+            stage_ms[e.name] += e.cpu_time_total / 1e3
+        elif e.name.startswith("cudaLaunchKernel") or e.name.startswith("cuLaunchKernel"):
+            host_launches += 1
+        elif e.name.startswith("cudaGraphLaunch"):
+            graph_launches += 1
+    return stage_ms, host_launches, graph_launches
+
+
+def profile_replay(args) -> None:
+    """The whole-sequence replay traced: a replay of the cp course's first
+    ``--frames`` frames (loop closure off, K1 on) after one that captures
+    the graphs; per-frame means and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import COURSE, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY, ENGINE_SEED, frames, loop_off_cfg
+    from rivslam_tpu_torch import pipeline, presets
+    from rivslam_tpu_torch.io import datasets, synthetic
+
+    smi = _smi()
+    seq, _ = synthetic.simulate_sequence(**COURSE)
+    F = min(args.frames, seq.num_frames)
+    stacked = datasets.stack_sequence(frames(seq, 0, F), ENGINE_CAPACITY, ENGINE_IMU_CAPACITY)
+    eng = pipeline.Engine(loop_off_cfg(presets), seed=ENGINE_SEED, device="cuda")
+    eng.replay_sequence(stacked)  # the graph captures
+    reads0 = eng.reg_graphs.reads
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rep = eng.replay_sequence(stacked)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, busy, by_name = _device_kernels(prof)
+    stage_ms, host_launches, graph_launches = _host_side(prof)
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:10]
+    reads = eng.reg_graphs.reads - reads0
+    print(f"{smi}; replay of the cp course's first {F} frames (loop closure off, capacity {ENGINE_CAPACITY}), "
+          f"traced: wall {wall_ms:.3f} ms ({wall_ms / F:.3f} ms a frame), device busy {busy:.3f} ms, idle "
+          f"share {1 - busy / wall_ms:.3f}; {len(kernels)} kernels on the device ({len(kernels) / F:.0f} a "
+          f"frame), {host_launches / F:.0f} launched by the host a frame, {graph_launches / F:.2f} graph "
+          f"replays a frame; registration host reads {reads / F:.2f} a frame, window iterations "
+          f"{rep['solver_iterations'].mean():.2f} a frame", flush=True)
+    print("  host ms a frame by stage: " + ", ".join(f"{k} {v / F:.1f}" for k, v in stage_ms.items() if v),
+          flush=True)
+    for name, times in top:
+        print(f"  {sum(times):9.3f} ms  {len(times):5d}x  {name[:110]}", flush=True)
+    print(json.dumps({"card": smi, "mode": "replay", "frames": F, "wall_ms": wall_ms, "device_busy_ms": busy,
+                      "idle_share": 1 - busy / wall_ms, "kernels": len(kernels), "host_launches": host_launches,
+                      "graph_launches": graph_launches, "registration_host_reads": reads,
+                      "stage_ms": stage_ms}), flush=True)
+
+
 STAGES = ("engine.preprocess", "engine.odometry", "odometry.scan_to_map", "odometry.submap",
           "engine.backend", "backend.preintegrate", "backend.information", "backend.window_solve",
           "engine.keyframe", "engine.loop_detection", "engine.global_solve")
@@ -192,7 +263,7 @@ def profile_engine(args) -> None:
     seq, _ = synthetic.simulate_sequence(**(GARDEN_COURSE if args.garden else COURSE))
     seq = frames(seq, 0, min(args.warmup + args.frames, seq.num_frames))
     if args.garden:
-        cfg = garden_course_cfg(presets)
+        cfg = garden_course_cfg()
         cfg = dataclasses.replace(cfg, loop=dataclasses.replace(cfg.loop, async_loop=args.async_loop))
     else:
         cfg = (preset_cfg if args.loop else loop_off_cfg)(presets)
@@ -215,17 +286,7 @@ def profile_engine(args) -> None:
             state["prof"].stop()
             kernels, busy, by_name = _device_kernels(state["prof"])
             top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:10]
-            stage_ms = {k: 0.0 for k in STAGES}
-            host_launches = graph_launches = 0
-            for e in state["prof"].events():
-                if e.device_type != torch.autograd.DeviceType.CPU:
-                    continue
-                if e.name in stage_ms:
-                    stage_ms[e.name] += e.cpu_time_total / 1e3
-                elif e.name.startswith("cudaLaunchKernel") or e.name.startswith("cuLaunchKernel"):
-                    host_launches += 1
-                elif e.name.startswith("cudaGraphLaunch"):
-                    graph_launches += 1
+            stage_ms, host_launches, graph_launches = _host_side(state["prof"])
             rows.append({
                 "frame": i, "wall_ms": wall_ms, "kernel_launches": len(kernels),
                 "host_kernel_launches": host_launches, "graph_launches": graph_launches,
@@ -328,17 +389,22 @@ def digest_engine(args) -> None:
     import numpy as np
 
     import rivslam_tpu_torch
-    from chip_smoke import (COURSE, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY, MAX_ATE_RATIO, REF, exact_cfg,
-                            preset_cfg)
+    from chip_smoke import (COURSE, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY, GARDEN_COURSE, MAX_ATE_RATIO, REF,
+                            exact_cfg, garden_cfg, preset_cfg)
     from rivslam_tpu_torch import pipeline, presets
     from rivslam_tpu_torch.eval import ate
     from rivslam_tpu_torch.io import datasets, synthetic
 
     root = os.path.dirname(rivslam_tpu_torch.__file__)
-    seq, _ = synthetic.simulate_sequence(**COURSE)
-    gt = np.linalg.inv(seq.gt_poses[0]) @ seq.gt_poses
+    courses = {}
+    for name, params in (("cp", COURSE), ("garden", GARDEN_COURSE)):
+        seq, _ = synthetic.simulate_sequence(**params)
+        courses[name] = (seq, np.linalg.inv(seq.gt_poses[0]) @ seq.gt_poses)
     out, ates = {}, {}
-    for key, cfg, seeds in (("preset", preset_cfg(presets), DIGEST_SEEDS), ("exact", exact_cfg(presets), (0,))):
+    for key, cfg, seeds, course in (("preset", preset_cfg(presets), DIGEST_SEEDS, "cp"),
+                                    ("exact", exact_cfg(), (0,), "cp"),
+                                    ("garden", garden_cfg(presets), (0,), "garden")):
+        seq, gt = courses[course]
         for seed in seeds:
             eng = pipeline.Engine(cfg, seed=seed, device="cuda")
             datasets.replay(eng, seq, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY)

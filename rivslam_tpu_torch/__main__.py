@@ -12,14 +12,19 @@ aggregated map PCD, a checkpoint (the JAX package's format: a JAX session
 resumes here and the reverse) and a visualization export, and prints the
 per-stage timing table the reference exposes via `/command "time"`.
 
-The flags are the JAX package's, but for four:
+``--device-replay`` runs the whole sequence through
+``Engine.replay_sequence`` (preprocess, odometry and window backend for
+every frame, no loop closure): the sequential real-time-factor protocol. It
+prints its frames/s on stderr and writes the TUM trajectory and, with
+``--map``, the keyframe-flagged frames' clouds under their window poses; it
+cannot continue a ``--resume``d session, and ``--ckpt`` and ``--viz``, which
+need the keyframe state, are skipped with a message.
+
+The flags are the JAX package's, but for three:
 - ``--device cuda|cpu`` (default cuda) picks the device; there is no
   fallback from the card to the CPU;
 - ``--profile DIR`` writes a torch.profiler trace of the replay
   (``DIR/trace.json``, Chrome trace format);
-- ``--device-replay`` (the whole sequence as one device program) raises
-  NotImplementedError until whole-sequence replay is ported (ROADMAP.md,
-  queue 1, item 3);
 - ``--f64`` runs in float64, which the CUDA kernels do not take: on the card
   their float32 error is raised.
 """
@@ -89,18 +94,18 @@ def main(argv=None) -> int:
                     help="convert the input .npz sequence to the native "
                     ".rivbin container and exit")
     ap.add_argument("--device-replay", action="store_true",
-                    help="the whole sequence as one device program (not ported yet)")
+                    help="run the whole sequence through Engine.replay_sequence "
+                    "(preprocess+odometry+window backend; no loop closure): the "
+                    "sequential real-time-factor protocol")
     ap.add_argument("--compress-rivbin", action="store_true",
                     help="with --to-rivbin: write the LZ4-chunked v2 "
                     "container (decoded on the prefetch workers)")
     args = ap.parse_args(argv)
     if not args.out and not (args.to_rivbin or args.histogram):
         ap.error("--out is required unless --to-rivbin/--histogram")
-    if args.device_replay:
-        raise NotImplementedError(
-            "--device-replay (whole-sequence replay) is not ported yet: see ROADMAP.md, "
-            "queue 1, item 3 (whole-sequence replay)"
-        )
+    if args.device_replay and args.resume:
+        ap.error("--device-replay re-runs the sequence from frame 0 and "
+                 "cannot continue a --resume'd session")
 
     import torch
 
@@ -201,6 +206,8 @@ def main(argv=None) -> int:
         if eng.device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         profiler = torch.profiler.profile(activities=acts)
+    if args.device_replay:
+        return _device_replay(args, eng, profiler)
     with profiler if profiler is not None else contextlib.nullcontext():
         if args.seq.endswith(".rivbin"):
             from rivslam_tpu_torch.runtime import native
@@ -225,9 +232,7 @@ def main(argv=None) -> int:
                 progress=lambda i, n: print(f"frame {i}/{n}", file=sys.stderr) if i % 50 == 0 else None,
             )
     if profiler is not None:
-        os.makedirs(args.profile, exist_ok=True)
-        profiler.export_chrome_trace(os.path.join(args.profile, "trace.json"))
-        print(f"torch.profiler trace written to {args.profile}/trace.json", file=sys.stderr)
+        _write_profile(profiler, args.profile)
 
     ts, poses = eng.trajectory()
     tum.save_tum(args.out, ts, poses)
@@ -272,6 +277,68 @@ def main(argv=None) -> int:
             print("WARNING: async loop worker overran on most keyframes — loop recall is "
                   "degraded; consider sync mode or a larger detection interval")
     eng.close()
+    return 0
+
+
+def _write_profile(profiler, path: str) -> None:
+    os.makedirs(path, exist_ok=True)
+    profiler.export_chrome_trace(os.path.join(path, "trace.json"))
+    print(f"torch.profiler trace written to {path}/trace.json", file=sys.stderr)
+
+
+def _device_replay(args, eng, profiler) -> int:
+    """--device-replay: the whole sequence through Engine.replay_sequence
+    (no loop closure), its TUM trajectory and optionally its map."""
+    import time
+
+    import torch
+
+    from rivslam_tpu_torch.io import datasets, tum
+
+    if args.seq.endswith(".rivbin"):
+        from rivslam_tpu_torch.runtime import native
+
+        stacked = datasets.stack_native_sequence(native.NativeSequence(args.seq), capacity=args.capacity,
+                                                 imu_capacity=args.imu_capacity)
+    else:
+        stacked = datasets.stack_sequence(datasets.RadarSequence.load(args.seq), capacity=args.capacity,
+                                          imu_capacity=args.imu_capacity)
+    with profiler if profiler is not None else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        rep = eng.replay_sequence(stacked)
+        dt = time.perf_counter() - t0
+    if profiler is not None:
+        _write_profile(profiler, args.profile)
+    F = len(stacked["stamps"])
+    print(f"device replay: {F} frames in {dt:.3f} s ({F / dt:.1f} frames/s, {1e3 * dt / F:.2f} ms/frame; "
+          "the first replay includes the CUDA graph captures: re-run for steady-state timing)",
+          file=sys.stderr)
+    for t, pose in zip(stacked["stamps"], rep["pose"]):
+        eng.state.trajectory.append((float(t), np.asarray(pose)))
+    if args.map:
+        # the MapCloudGenerator role from the replay's outputs: the
+        # keyframe-flagged frames' clouds under their window-backend poses
+        # (no loop correction: the replay has no loop stage)
+        from rivslam_tpu_torch.backend import map as map_mod
+
+        kf = np.asarray(rep["is_keyframe"], bool)
+
+        def t_(a, dtype=eng.dtype):
+            return torch.as_tensor(np.asarray(a), dtype=dtype).to(eng.device)
+
+        map_xyz, valid = map_mod.assemble_map(t_(stacked["xyz"][kf]), t_(stacked["mask"][kf], torch.bool),
+                                              t_(rep["pose"][kf]))
+        pts = map_xyz[valid].cpu().numpy()
+        map_mod.save_map_pcd(args.map, pts, zero_utm=None, apply_utm_offset=False)
+        print(f"wrote {len(pts)} map points to {args.map}")
+    for flag in ("ckpt", "viz"):
+        if getattr(args, flag):
+            print(f"--{flag} needs keyframe state; not available under --device-replay", file=sys.stderr)
+    ts, poses = eng.trajectory()
+    tum.save_tum(args.out, ts, poses)
+    print(f"wrote {len(ts)} poses to {args.out}")
+    if args.eval_gt:
+        _eval_gt(args, ts, poses)
     return 0
 
 

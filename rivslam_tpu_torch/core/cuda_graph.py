@@ -14,6 +14,14 @@ inside a graph is counted per replay: the launches a piece made while it
 was captured are credited to each wrapper at every replay, and the set-up
 (warm-up and capture) leaves the counts as it found them.
 
+Nor may a capture meet Python's cycle collector: on the card, freeing
+dead reference cycles in the middle of a capture was seen to invalidate it
+(the window solve's capture at Engine construction, after earlier Engines
+and failed captures had become garbage; which freed object does it is not
+known). torch no longer collects before a capture unless
+``torch.compiler.config.force_cudagraph_gc`` is set, so a capture collects
+first and holds the collector off until it ends (``_no_gc``).
+
 ``LOCK`` makes a capture safe beside a second thread (the Engine's
 asynchronous loop worker). A capture takes it for its warm-up and capture,
 and the worker for each job: under the default capture mode any CUDA call
@@ -27,6 +35,7 @@ worker launch is counted, or lost, while a capture restores the counts.
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 
 import torch
@@ -50,6 +59,20 @@ def cusolver():
         yield
     finally:
         torch.backends.cuda.preferred_linalg_library(prev)
+
+
+@contextlib.contextmanager
+def _no_gc():
+    """Collect the dead reference cycles now, then keep the cycle collector
+    off until the block ends."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class Graphed:
@@ -89,7 +112,7 @@ class Graphed:
                 torch.cuda.current_stream(dev).wait_stream(side)
                 self.graph = torch.cuda.CUDAGraph()
                 warm = [fn_.launches for fn_ in COUNTED]
-                with torch.cuda.graph(self.graph):
+                with _no_gc(), torch.cuda.graph(self.graph):
                     self.outputs = fn(*inputs)
                 captured = [fn_.launches - w for fn_, w in zip(COUNTED, warm)]
         except Exception as e:

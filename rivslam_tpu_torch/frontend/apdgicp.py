@@ -27,8 +27,8 @@ give. ``solve_lm`` runs the iterations eagerly and reads one flag from the
 device after each; ``GraphedRegistration`` replays them as CUDA graphs on
 the card (the Engine's odometry), reading the same flag.
 
-VGICP and NDT raise NotImplementedError until they are ported (ROADMAP.md,
-queue 1, item 5 "Options").
+VGICP and NDT (``frontend/vgicp.py``) are models for the same LM driver,
+reached through ``register_dispatch``.
 """
 
 from __future__ import annotations
@@ -542,9 +542,11 @@ def register_dispatch(
 ) -> RegistrationResult:
     """Method factory (registrations.cpp:38-140): FAST_APDGICP / FAST_GICP /
     GICP / GICP_OMP take the structure-of-arrays fast path when
-    cfg.use_fast_path; everything else but VGICP/NDT takes the exact
-    ``register`` (ICP drops the Mahalanobis metric). Eager unless the
-    caller hands it ``graphs`` (the Engine's odometry does, on the card)."""
+    cfg.use_fast_path; VGICP / FAST_VGICP / FAST_VGICP_CUDA and NDT /
+    NDT_OMP / NDT_CUDA voxelize the target (``frontend/vgicp.py``; NDT
+    point-to-distribution); everything else takes the exact ``register``
+    (ICP drops the Mahalanobis metric). Eager unless the caller hands it
+    ``graphs`` (the Engine's odometry does, on the card)."""
     dev = resolve(device)
     source = _map(source, lambda t: t.to(dev))
     target = _map(target, lambda t: t.to(dev))
@@ -557,10 +559,13 @@ def register_dispatch(
         return _map(batched, lambda t: t[0])
     m = cfg.method
     if m in _VOXEL_METHODS:
-        raise NotImplementedError(
-            f"registration method {m!r} is not ported yet: see ROADMAP.md, queue 1, "
-            "item 5 (Options: VGICP/NDT)"
-        )
+        from rivslam_tpu_torch.frontend import vgicp
+
+        vm = vgicp.build_voxel_map(target.xyz, target.mask, cfg)
+        if m in ("VGICP", "FAST_VGICP", "FAST_VGICP_CUDA"):
+            return vgicp.register_vgicp(source, vm, guess, cfg, graphs=graphs)
+        return vgicp.register_ndt(source.xyz, source.mask, vm, guess, cfg,
+                                  src_capacity=source.xyz.shape[-2], graphs=graphs)
     if cfg.use_fast_path and m in _FAST_METHODS:
         from rivslam_tpu_torch.frontend import apdgicp_fast
 

@@ -6,6 +6,13 @@ global keyframe graph with loop closure.
     outputs = datasets.replay(eng, seq)   # or eng.process_frame(...) per scan
     ts, poses = eng.trajectory()          # loop-corrected (corrected=True)
 
+    rep = eng.replay_sequence(datasets.stack_sequence(seq))  # no loop stage
+
+``replay_sequence`` runs the frame step over a whole stacked sequence with
+its inputs and every frame's RANSAC scores uploaded once and its outputs
+kept on the device until the end (the reference's one-``lax.scan`` replay);
+``replay_fleet`` runs B sequences so, one after another.
+
 Per frame (``_frame_step``): NaN/power filters, REVE ego velocity, dynamic
 object removal, deskew, distance filter, voxel downsample, outlier removal,
 floor detection with its fallback chain and under-floor removal, covariance
@@ -68,13 +75,16 @@ moves them to the device, so a CPU run and a card run of the port see the
 same hypotheses. The one seam for the draw is the ``uniforms`` argument:
 ``uniforms(frame_index, shape) -> array in [0, 1)``, called per frame for
 REVE's [ransac_iter, N] and then the floor's [ransac_iterations, N] scores
-(the parity tests feed the JAX engine's own draws through it).
+(the parity tests feed the JAX engine's own draws through it). The replay
+calls it with the frame's index in the sequence, the fleet with
+``sequence=b`` as well.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import queue
 import threading
 import time
@@ -185,6 +195,14 @@ def _merge_chain(live_R, live_p, solved_R, solved_p, rel_R, rel_p, k_snap: int, 
     return R, p
 
 
+def fleet_seed(base: int, b: int) -> int:
+    """The seed of sequence b's generator in ``Engine.replay_fleet``, from
+    the call's ``base`` draw: a 63-bit integer from numpy's SeedSequence of
+    (base, b), so that sequences differ and none depends on B."""
+    hi, lo = np.random.SeedSequence([base, b]).generate_state(2, np.uint32)
+    return ((int(hi) << 32) | int(lo)) & (2**63 - 1)
+
+
 @dataclasses.dataclass
 class EngineState:
     """Mutable host-side engine state (device tensors inside)."""
@@ -264,12 +282,18 @@ class Engine:
             u = torch.rand(shape, generator=self._generator)
         return u.to(self.device)
 
-    def _preprocess(self, cloud: RadarCloud, ang_vel: torch.Tensor, prev_floor: torch.Tensor):
+    def _draw_shapes(self, n: int) -> tuple[tuple[int, int], tuple[int, int]]:
+        """The shapes of one frame's RANSAC scores, in the order they are
+        drawn: REVE's, then the floor detector's, for a cloud of n points."""
+        c = self.cfg
+        return (max(c.reve.ransac_iter, 1), n), (c.floor.ransac_iterations, n)
+
+    def _preprocess(self, cloud: RadarCloud, ang_vel: torch.Tensor, prev_floor: torch.Tensor, draws):
         c = self.cfg
         p = c.preprocess
         cl = filters.nan_filter(cloud)
         cl = filters.power_filter(cl, p.power_threshold)
-        ego = reve.estimate_ego_velocity(cl, c.reve, self._uniforms((max(c.reve.ransac_iter, 1), cl.capacity)))
+        ego = reve.estimate_ego_velocity(cl, c.reve, draws[0])
         # dynamic objects = RANSAC outliers (preprocessing_nodelet.cpp:766-774)
         dynamic_mask = cl.mask & ~ego.inlier_mask & ego.success
         if p.enable_dynamic_object_removal:
@@ -286,9 +310,7 @@ class Engine:
             cl = filters.statistical_outlier_removal(cl, p.statistical_mean_k, p.statistical_stddev)
         elif p.outlier_removal_method == "BILATERAL":
             cl = filters.bilateral_filter(cl, p.bilateral_sigma_s, p.bilateral_sigma_r)
-        fl = floor.detect_floor(
-            cl.xyz, cl.mask, c.floor, self._uniforms((c.floor.ransac_iterations, cl.capacity))
-        )
+        fl = floor.detect_floor(cl.xyz, cl.mask, c.floor, draws[1])
         # floor fallback chain (floor_detection_nodelet.cpp:100-130):
         # detected -> previous -> initial plane; under-floor removal clips
         # the odometry input against it (+tolerance margin)
@@ -299,14 +321,18 @@ class Engine:
         prepared = apdgicp.prepare(cl.xyz, cl.mask, c.registration, device=self.device)
         return cl, ego, prepared, fl, dynamic_mask, eff_floor
 
-    def _frame_step(self, cloud, ang_vel, stamp, imu_dts, imu_acc, imu_gyr, imu_mask):
+    def _frame_step(self, cloud, ang_vel, stamp, imu_dts, imu_acc, imu_gyr, imu_mask, draws=None):
         """preprocess -> odometry -> backend for one frame; the first frame
-        initializes the odometry and the backend instead of matching."""
+        initializes the odometry and the backend instead of matching.
+        ``draws``: the frame's RANSAC scores (REVE's, the floor's), drawn
+        here when None."""
         c = self.cfg
         st = self.state
         with record_function("engine.preprocess"):
+            if draws is None:
+                draws = tuple(self._uniforms(shape) for shape in self._draw_shapes(cloud.capacity))
             cl, ego, prepared, fl, dynamic_mask, st.floor_prev = self._preprocess(
-                cloud, ang_vel, st.floor_prev
+                cloud, ang_vel, st.floor_prev, draws
             )
         oout = None
         if st.odo is None:
@@ -412,6 +438,137 @@ class Engine:
             "prediction_labels": ["motion_prediction"],
             "prediction_errors": [oout.pred_error.cpu().numpy()],
         }
+
+    # ---- whole-sequence replay ----------------------------------------------
+    def replay_sequence(self, stacked: dict) -> dict:
+        """Every frame of a stacked sequence (``io.datasets.stack_sequence``
+        or ``stack_native_sequence``) through preprocess -> REVE -> floor ->
+        odometry -> window backend: the reference's one-``lax.scan``
+        replay, the sequential real-time-factor protocol. Loop closure and
+        the keyframe graph are host stages and are not replayed (the
+        reference's loop path is offline); ``process_frame`` runs them.
+
+        The inputs are uploaded once, every frame's RANSAC scores are drawn
+        before frame 0 in ``process_frame``'s order (the ``uniforms`` seam,
+        called with the frame's index in the sequence, or the Engine's
+        generator), each frame's outputs go into [F, ...] device tensors,
+        and those are copied to the host once, at the end. The frame step is
+        ``process_frame``'s, with the Engine's CUDA graphs: a fresh Engine
+        gives its loop-off ``process_frame`` trajectory bitwise. The frame
+        step still reads the host once per outer iteration of the
+        registration and of the window solve (and, with scan-to-map, once
+        for the keyframe flag); the per-frame outputs are not read. The
+        Engine's session state is left as it was.
+
+        Returns numpy arrays: odom [F,4,4], pose [F,4,4] (the window
+        backend's estimate), is_keyframe [F], converged [F], chi2 [F],
+        ego_vel [F,3], solver_iterations [F]."""
+        n = np.asarray(stacked["xyz"]).shape[-2]
+        draws = self._draw_sequence(len(stacked["stamps"]), n, self._generator, self._uniforms_fn)
+        return self._replay(self._prep_stacked(stacked), draws)
+
+    def replay_fleet(self, stacked: dict, mesh=None) -> dict:
+        """B independent sequences (every array of a ``stack_sequence`` dict
+        with a leading [B]; equal F and capacities), each replayed as
+        ``replay_sequence`` replays one; returns its dict with a leading
+        [B]. The sequences run one after another on the Engine's stream.
+
+        Sequence b draws its RANSAC scores from its own generator, seeded
+        with ``fleet_seed(base, b)``, where ``base`` is one draw from the
+        Engine's generator at this call (the reference folds b into the
+        session key); the ``uniforms`` seam is called as
+        ``uniforms(frame_index, shape, sequence=b)``. ``mesh`` (the fleet
+        sharded over several cards) belongs to the distributed layer."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "replay_fleet(mesh=...) is not ported yet: see ROADMAP.md, queue 1, item 6 "
+                "(the distributed layer, dist/)"
+            )
+        B, F = np.asarray(stacked["stamps"]).shape
+        n = np.asarray(stacked["xyz"]).shape[-2]
+        base = int(torch.randint(0, 2**62, (), generator=self._generator))
+        outs = []
+        for b in range(B):
+            gen = torch.Generator().manual_seed(fleet_seed(base, b))
+            seam = None if self._uniforms_fn is None else functools.partial(self._uniforms_fn, sequence=b)
+            draws = self._draw_sequence(F, n, gen, seam)
+            outs.append(self._replay(self._prep_stacked({k: v[b] for k, v in stacked.items()}), draws))
+        return {k: np.stack([o[k] for o in outs]) for k in outs[0]}
+
+    def _draw_sequence(self, F: int, n: int, generator, uniforms) -> tuple[torch.Tensor, torch.Tensor]:
+        """Every frame's RANSAC scores, drawn on the CPU in
+        ``process_frame``'s order (per frame REVE's, then the floor's) from
+        ``uniforms(i, shape)`` or ``generator``, and uploaded at once:
+        ([F, R_reve, n], [F, R_floor, n])."""
+        drawn = ([], [])
+        for i in range(F):
+            for k, shape in enumerate(self._draw_shapes(n)):
+                if uniforms is not None:
+                    drawn[k].append(torch.tensor(np.asarray(uniforms(i, shape))))
+                else:
+                    drawn[k].append(torch.rand(shape, generator=generator))
+        return tuple(torch.stack(d).to(self.device) for d in drawn)
+
+    def _prep_stacked(self, stacked: dict):
+        """A stacked sequence's arrays on the device: the clouds, the
+        per-frame angular velocity (the first valid gyro sample), stamps and
+        IMU buffers, rotated into the radar frame with ``imu.apply_extrinsics``
+        frame by frame in float64 before the cast, as ``process_frame``
+        converts them."""
+        dt, dev = self.dtype, self.device
+        acc, gyr = np.asarray(stacked["imu_acc"]), np.asarray(stacked["imu_gyr"])
+        imask = np.asarray(stacked["imu_mask"])
+        if self.cfg.imu.apply_extrinsics:
+            ext = np.asarray(self.cfg.imu.ext_rot, dtype=np.float64).reshape(3, 3)
+            acc = np.stack([a @ ext.T for a in acc])
+            gyr = np.stack([g @ ext.T for g in gyr])
+        ang_vel = np.stack([g[np.argmax(m)] if m.any() else np.zeros(3) for g, m in zip(gyr, imask)])
+
+        def t(a, dtype=dt):
+            return torch.as_tensor(np.asarray(a), dtype=dtype).to(dev)
+
+        clouds = RadarCloud(xyz=t(stacked["xyz"]), doppler=t(stacked["doppler"]),
+                            intensity=t(stacked["intensity"]), mask=t(stacked["mask"], torch.bool))
+        return clouds, t(ang_vel), t(stacked["stamps"]), (t(stacked["imu_dts"]), t(acc), t(gyr),
+                                                          t(imask, torch.bool))
+
+    def _replay(self, inputs, draws) -> dict:
+        """The frame step over every frame of ``_prep_stacked``'s inputs on
+        a fresh session state; outputs gathered on the device."""
+        clouds, ang_vel, stamps, (dts, acc, gyr, imask) = inputs
+        F, dt, dev = stamps.shape[0], self.dtype, self.device
+        out = {
+            "odom": torch.empty((F, 4, 4), dtype=dt, device=dev),
+            "pose": torch.empty((F, 4, 4), dtype=dt, device=dev),
+            "is_keyframe": torch.ones(F, dtype=torch.bool, device=dev),
+            "converged": torch.ones(F, dtype=torch.bool, device=dev),
+            "chi2": torch.empty(F, dtype=dt, device=dev),
+            "ego_vel": torch.empty((F, 3), dtype=dt, device=dev),
+        }
+        iterations = np.zeros(F, np.int32)  # counted on the host by the window solve
+        saved = self.state
+        self.state = EngineState(floor_prev=torch.tensor([0.0, 0.0, 1.0, 0.0], dtype=dt, device=dev))
+        try:
+            for i in range(F):
+                cloud = RadarCloud(xyz=clouds.xyz[i], doppler=clouds.doppler[i],
+                                   intensity=clouds.intensity[i], mask=clouds.mask[i])
+                _, ego, _, _, oout, odom_pose, bout = self._frame_step(
+                    cloud, ang_vel[i], stamps[i], dts[i], acc[i], gyr[i], imask[i],
+                    draws=(draws[0][i], draws[1][i]),
+                )
+                out["odom"][i] = odom_pose
+                out["pose"][i] = bout.pose
+                out["chi2"][i] = bout.chi2
+                out["ego_vel"][i] = ego.v
+                iterations[i] = bout.iterations
+                if oout is not None:  # frame 0 is a converged keyframe
+                    out["is_keyframe"][i] = oout.is_keyframe
+                    out["converged"][i] = oout.reg.converged
+        finally:
+            self.state = saved
+        res = {k: v.cpu().numpy() for k, v in out.items()}
+        res["solver_iterations"] = iterations
+        return res
 
     # ---- the keyframe graph ----------------------------------------------
     def _edge_info(self, xyz1, mask1, xyz2, mask2, relpose) -> torch.Tensor:

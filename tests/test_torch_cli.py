@@ -3,7 +3,9 @@
 trajectory that the Engine and ``datasets.replay`` give in process with the
 same seed, from a ``.npz``, a ``.rivbin`` and a ROS1 bag alike; a session
 dumped with ``--ckpt`` (the asynchronous loop worker on) resumes with
-``--resume``; the diagnostics and the one flag that is not ported yet.
+``--resume``; the diagnostics; ``--device-replay`` (the whole sequence
+through ``Engine.replay_sequence``) from a ``.npz`` and a ``.rivbin``, with
+its map and its refusals.
 """
 
 import dataclasses
@@ -99,12 +101,46 @@ def test_cli_bag_input(tmp_path):
     assert len(ts) == seq.num_frames and np.isfinite(poses).all()
 
 
-def test_cli_histogram_and_what_is_not_ported(seq_file, capsys):
+def test_cli_histogram_and_what_is_not_ported(seq_file, tmp_path, capsys):
+    """The histogram; and --device-replay, which earlier slices refused,
+    writes one pose per frame (the replay's, tests/test_torch_replay.py
+    holds it to process_frame)."""
     path, _ = seq_file
     assert cli.main(["--seq", str(path), "--histogram", "--device", "cpu"]) == 0
     assert "total sampled points" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["--seq", str(path), "--out", "x.txt", "--device-replay"])
+    out = tmp_path / "replay.txt"
+    assert cli.main(["--seq", str(path), "--out", str(out), "--device-replay", *ARGS]) == 0
+    ts, poses = tum.load_tum(str(out))
+    assert len(ts) == COURSE["n_frames"] and np.isfinite(poses).all()
+    assert "frames/s" in capsys.readouterr().err
+
+
+def _replayed(seq):
+    cfg = dataclasses.replace(EngineConfig(), registration=RegistrationConfig(method="FAST_GICP"))
+    eng = pipeline.Engine(cfg, device="cpu")
+    rep = eng.replay_sequence(datasets.stack_sequence(seq, CAP, IMU_CAP))
+    return seq.frame_stamps, rep
+
+
+def test_cli_device_replay(seq_file, tmp_path, capsys):
+    """--device-replay from a .rivbin writes the in-process replay's
+    trajectory and the keyframes' map; it refuses --resume and skips --ckpt
+    and --viz with the reference's messages."""
+    path, seq = seq_file
+    rb = tmp_path / "seq.rivbin"
+    assert cli.main(["--seq", str(path), "--to-rivbin", str(rb)]) == 0
+    out, pcd = tmp_path / "t.txt", tmp_path / "m.pcd"
+    assert cli.main(["--seq", str(rb), "--out", str(out), "--map", str(pcd), "--device-replay",
+                     "--ckpt", str(tmp_path / "ck"), "--viz", str(tmp_path / "v"), *ARGS]) == 0
+    captured = capsys.readouterr()
+    assert "--ckpt needs keyframe state" in captured.err and "--viz needs keyframe state" in captured.err
+    assert "map points" in captured.out and pcd.exists() and not (tmp_path / "ck").exists()
+    ts, rep = _replayed(seq)
+    tum.save_tum(str(tmp_path / "want.txt"), ts, rep["pose"])
+    assert out.read_text() == (tmp_path / "want.txt").read_text()
+    with pytest.raises(SystemExit):
+        cli.main(["--seq", str(path), "--out", str(out), "--device-replay", "--resume", str(tmp_path), *ARGS])
+    assert "cannot continue a --resume'd session" in capsys.readouterr().err
 
 
 def test_cli_refuses_a_missing_card(seq_file, tmp_path, monkeypatch):

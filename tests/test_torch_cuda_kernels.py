@@ -641,15 +641,20 @@ REG_CASES = [
     dict(use_pallas_correspondence=False, optimizer="GN"),
     dict(use_fast_path=False),
     dict(use_fast_path=False, method="GICP", optimizer="GN"),
+    dict(method="VGICP"),
+    dict(method="NDT_OMP", transformation_epsilon=1e-2),
 ]
 
 
-@pytest.mark.parametrize("kw", REG_CASES, ids=["fast-K1-LM", "fast-GN", "exact-K2-LM", "exact-GICP-GN"])
+@pytest.mark.parametrize("kw", REG_CASES, ids=["fast-K1-LM", "fast-GN", "exact-K2-LM", "exact-GICP-GN",
+                                               "vgicp-LM", "ndt-LM"])
 def test_graphed_registration_equals_its_eager_run(dev, kw):
     """Five frames of changing source and target through the registration's
     CUDA graphs give bitwise what the same functions give eagerly on the
     card, with the same K1/K2 launches counted per frame (the graphs credit
-    their captured launches at each replay); one capture for the key."""
+    their captured launches at each replay); one capture for the key. The
+    voxel methods (VGICP, NDT) are models of the same LM driver and replay
+    the same way (no kernel of their own)."""
     from rivslam_tpu_torch.core import cuda_graph
 
     cfg = RegistrationConfig(**kw)
@@ -827,3 +832,31 @@ def test_scan_to_map_graph_pair(dev):
     assert shapes == [(1, 1024, 1024), (1, 1024, S * 1024)], shapes
     credited = sum(n.get("K1", 0) for n in eng.reg_graphs.launches_by_shape().values())
     assert credited == nn_gather.fused_gather.launches > 0
+
+
+def test_replay_on_the_card_equals_process_frame(dev):
+    """Engine.replay_sequence on the card: bitwise the process_frame loop of
+    the same loop-off configuration and seed (the same frame step, the
+    Engine's graphs), K1 and K3 launched; a fleet of two equals its single
+    replays."""
+    seq, _ = synthetic.simulate_sequence(seed=21, radius=8.0, omega=0.25, dt=0.25, n_frames=6,
+                                         capacity=1024, world_points=20000, extent=30.0)
+    cfg = presets.get("cp")
+    cfg = dataclasses.replace(
+        cfg, loop=dataclasses.replace(cfg.loop, enable=False),
+        registration=dataclasses.replace(cfg.registration, use_pallas_correspondence=True),
+    )
+    outs = datasets.replay(pipeline.Engine(cfg, seed=0, device=dev), seq, 1024, 64)
+    stacked = datasets.stack_sequence(seq, 1024, 64)
+    k1, k3 = nn_gather.fused_gather.launches, nn_argmin.nearest_neighbor.launches
+    rep = pipeline.Engine(cfg, seed=0, device=dev).replay_sequence(stacked)
+    assert nn_gather.fused_gather.launches > k1 and nn_argmin.nearest_neighbor.launches > k3
+    np.testing.assert_array_equal(rep["pose"], np.stack([o["pose"] for o in outs]))
+    np.testing.assert_array_equal(rep["is_keyframe"], [o["is_keyframe"] for o in outs])
+    batch = {k: np.stack([v[:3], v[3:]]) for k, v in stacked.items()}
+    fleet = pipeline.Engine(cfg, seed=1, device=dev).replay_fleet(batch)
+    base = int(torch.randint(0, 2**62, (), generator=torch.Generator().manual_seed(1)))
+    for b in range(2):
+        one = pipeline.Engine(cfg, seed=pipeline.fleet_seed(base, b), device=dev).replay_sequence(
+            {k: v[b] for k, v in batch.items()})
+        np.testing.assert_array_equal(fleet["pose"][b], one["pose"])

@@ -145,10 +145,16 @@ def _chip_smoke():
 
 def test_chip_smoke_engine_configs_are_the_references():
     """chip_smoke.py's loop-on and exact engine runs use the configurations
-    whose JAX figures it is held to."""
+    whose JAX figures it is held to; the exact one is the port's validation
+    harness's (eval/validation.build_course_cfg), which builds the
+    reference's."""
+    from rivslam_tpu_torch.eval import validation
+
     cs = _chip_smoke()
     assert dataclasses.asdict(cs.preset_cfg(presets)) == dataclasses.asdict(preset_cfg(ref_presets))
-    assert dataclasses.asdict(cs.exact_cfg(presets)) == dataclasses.asdict(exact_cfg_reference())
+    port_exact = validation.build_course_cfg("cp", reg_overrides={"use_fast_path": False})
+    assert dataclasses.asdict(port_exact) == dataclasses.asdict(exact_cfg_reference())
+    assert cs.exact_cfg() == port_exact
 
 
 def preset_cfg(mod):

@@ -228,12 +228,18 @@ def garden_course_cfg_reference():
 
 def test_chip_smoke_garden_configs_are_the_references():
     """chip_smoke.py's garden runs use the configurations whose JAX figures
-    they are held to."""
+    they are held to; the course configuration is the port's validation
+    harness's (eval/validation.build_course_cfg), which builds the
+    reference's."""
     from test_torch_engine_loop import _chip_smoke
+
+    from rivslam_tpu_torch.eval import validation
 
     cs = _chip_smoke()
     assert dataclasses.asdict(cs.garden_cfg(presets)) == dataclasses.asdict(garden_cfg(ref_presets))
-    assert dataclasses.asdict(cs.garden_course_cfg(presets)) == dataclasses.asdict(garden_course_cfg_reference())
+    port_course = validation.build_course_cfg("garden", reg_overrides={"use_pallas_correspondence": True})
+    assert dataclasses.asdict(port_course) == dataclasses.asdict(garden_course_cfg_reference())
+    assert cs.garden_course_cfg() == port_course
 
 
 def reference_garden(cfg, seed: int = ENGINE_SEED) -> dict:
