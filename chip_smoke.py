@@ -98,7 +98,17 @@ Phases, each announced by a flushed "== phase" line:
               with method VGICP and with NDT_OMP (loop closure on): ATE held
               to 1.5x the JAX engine's, loops, latency, digest;
  19. CLI      python -m rivslam_tpu_torch --device cuda --device-replay on
-     replay   16 cp frames (.npz, --map): the TUM output and the frames/s line.
+     replay   16 cp frames (.npz, --map): the TUM output and the frames/s line;
+ 20. dist     the distributed layer (rivslam_tpu_torch/dist/) on a NCCL world
+              of 1 (dist.mesh.init_world, a file:// store, 60 s timeout) and a
+              (1, 1) mesh: batched_register at B=8 exact pairs against
+              register on the same batch and sharded_register against
+              register, bitwise, K2 counted through each;
+              batched_replay_odometry (S=2) against replay_odometry,
+              bitwise, K1 counted; solve_pose_graph_sharded and
+              solve_pose_graph_schur_sharded against their local twins
+              (float64, within 1e-6); replay_fleet(mesh=) at B=2 against
+              phase 17's digests; the phase's wall time.
 
 Any failed check raises, and the script then exits non-zero without a
 result. The line before the last is a JSON object listing the kernels, each
@@ -1387,6 +1397,7 @@ def main() -> None:
     fleet = fl_eng.replay_fleet(batch)
     fleet_s = time.perf_counter() - t0
     fl_counts = read_counts()
+    fleet_digests = [digest_of(fleet["pose"][b]) for b in range(2)]
     base = int(torch.randint(0, 2**62, (), generator=torch.Generator().manual_seed(ENGINE_SEED)))
     for b in range(2):
         single = pipeline.Engine(rp_cfg, seed=pipeline.fleet_seed(base, b), device=dev)
@@ -1428,6 +1439,89 @@ def main() -> None:
         say(f"CLI --device-replay: exit 0 in {time.perf_counter() - t0:.1f} s; "
             + " | ".join(ln for ln in (proc.stdout + proc.stderr).splitlines()
                          if ln.startswith(("wrote", "device replay"))) + f" {card}")
+
+    phase("20 distributed layer on a NCCL world of 1")
+    from rivslam_tpu_torch.dist import dist_gn, dist_graph, mesh as mesh_mod
+    from rivslam_tpu_torch.eval.scaling import _drifted_loop_graph
+    from rivslam_tpu_torch.frontend import replay_device
+    from rivslam_tpu_torch.loop import block_schur, global_graph
+
+    t_dist = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        say("dist: init_process_group(nccl, world 1, file:// store, 60 s timeout) ...")
+        mesh_mod.init_world("nccl", 0, 1, os.path.join(tmp, "init"), timeout_s=60.0)
+        say("dist: process group up")
+        try:
+            m = mesh_mod.make_mesh(1, 1)
+            x_cfg = RegistrationConfig(use_fast_path=False)
+            src8, tgt8 = (apdgicp.prepare(xyz[:8], mask[:8], x_cfg, device=dev)
+                          for xyz, mask in ((src_xyz, src_mask), (tgt_xyz, tgt_mask)))
+            fields = ("T", "H", "error", "converged", "iterations", "num_correspondences", "fitness")
+
+            def same(a, b):
+                return all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields)
+
+            zero_counts()
+            got = dist_gn.batched_register(src8, tgt8, guess[:8], x_cfg, m)
+            torch.cuda.synchronize()
+            c_batched = read_counts()
+            want = apdgicp.register(src8, tgt8, guess[:8], x_cfg)
+            check(same(got, want), "batched_register differs from register on the same batch")
+            check(c_batched["K2"] > 0, "batched_register: K2 never launched")
+            one = [apdgicp.PreparedCloud(xyz=c.xyz[:1], mask=c.mask[:1], cov=c.cov[:1]) for c in (src8, tgt8)]
+            zero_counts()
+            got = dist_gn.sharded_register(*one, guess[:1], x_cfg, m)
+            torch.cuda.synchronize()
+            c_sharded = read_counts()
+            check(same(got, apdgicp.register(*one, guess[:1], x_cfg)), "sharded_register differs from register")
+            check(c_sharded["K2"] > 0, "sharded_register: K2 never launched")
+            say(f"batched_register (B=8, exact) and sharded_register (1, {CAPACITY}, {CAPACITY}) bitwise "
+                f"register's; launches {c_batched} and {c_sharded}")
+
+            F = 8
+            args = [np.stack([stacked[k][:F]] * 2) for k in ("xyz", "mask")]
+            args += [np.zeros((2, F, 3), np.float32), np.stack([stacked["stamps"][:F]] * 2)]
+            zero_counts()
+            poses, kf, conv = dist_gn.batched_replay_odometry(*args, rp_cfg.odometry, rp_cfg.registration, m,
+                                                              device=dev)
+            torch.cuda.synchronize()
+            c_replay = read_counts()
+            single = replay_device.replay_odometry(*(a[0] for a in args), rp_cfg.odometry, rp_cfg.registration,
+                                                   device=dev)
+            check(all(torch.equal(x[s], y) for s in range(2) for x, y in zip((poses, kf, conv), single)),
+                  "batched_replay_odometry differs from replay_odometry")
+            check(c_replay["K1"] > 0, "batched_replay_odometry: K1 never launched")
+            say(f"batched_replay_odometry (S=2, {F} cp frames) bitwise replay_odometry's; launches {c_replay}")
+
+            g = _drifted_loop_graph(64, 8, 56, torch.float64, dev)
+            for name, sharded, local in (
+                ("PCG", lambda: dist_graph.solve_pose_graph_sharded(g, m, gn_iters=6),
+                 lambda: global_graph.solve_pose_graph(g, gn_iters=6)),
+                ("block-Schur", lambda: block_schur.solve_pose_graph_schur_sharded(g, m, num_blocks=8, gn_iters=6),
+                 lambda: block_schur.solve_pose_graph_schur(g, num_blocks=8, gn_iters=6)),
+            ):
+                (gs, c2s), (gl, c2l) = sharded(), local()
+                dp = (gs.p - gl.p).abs().max().item()
+                rel = abs(float(c2s) - float(c2l)) / abs(float(c2l))
+                say(f"sharded {name}: chi2 {float(c2s):.10g} against the local {float(c2l):.10g} (relative "
+                    f"{rel:.2e}), max|dp| {dp:.2e} m")
+                check(dp <= 1e-6 and rel <= 1e-6, f"sharded {name} differs from its local twin")
+
+            fm_eng = pipeline.Engine(rp_cfg, seed=ENGINE_SEED, device=dev)
+            zero_counts()
+            t0 = time.perf_counter()
+            meshed = fm_eng.replay_fleet(batch, mesh=m, axis="data")
+            meshed_s = time.perf_counter() - t0
+            c_fleet = read_counts()
+            digests = [digest_of(meshed["pose"][b]) for b in range(2)]
+            say(f"meshed fleet B=2: digests {[d[:16] for d in digests]}, phase 17's "
+                f"{[d[:16] for d in fleet_digests]}; {meshed_s:.3f} s (captures included); launches {c_fleet} {card}")
+            check(digests == fleet_digests, "the meshed fleet differs from the unmeshed fleet (phase 17)")
+            check(c_fleet["K1"] > 0 and c_fleet["K3"] > 0, "meshed fleet: K1 or K3 never launched")
+            del fm_eng
+        finally:
+            torch.distributed.destroy_process_group()
+    say(f"phase 20 wall time {time.perf_counter() - t_dist:.1f} s {card}")
 
     torch.cuda.synchronize()
     say(f"wall time {time.perf_counter() - t_start:.1f} s")

@@ -29,6 +29,12 @@ the card (the Engine's odometry), reading the same flag.
 
 VGICP and NDT (``frontend/vgicp.py``) are models for the same LM driver,
 reached through ``register_dispatch``.
+
+``register`` also takes a process ``group`` (the reference's ``axis_name``):
+each rank holds part of the source points, and the sums the reference
+psums (H, b and the error at each linearization, each try's error, the
+final statistics) are summed over the group (``dist/dist_gn.py``'s
+``sharded_register``). Without a group nothing changes.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from rivslam_tpu_torch.core import cuda_graph, lie
 from rivslam_tpu_torch.core.config import RegistrationConfig
 from rivslam_tpu_torch.core.device import resolve
 from rivslam_tpu_torch.core.pointcloud import SENTINEL
+from rivslam_tpu_torch.dist.mesh import all_sum
 from rivslam_tpu_torch.ops import eig3, knn, nn_corr
 
 _FAST_METHODS = ("FAST_APDGICP", "FAST_GICP", "GICP", "GICP_OMP")
@@ -156,13 +163,28 @@ def lm_try(tries: tuple, H, b, y0, T, ctx, cfg: RegistrationConfig, error_at) ->
     )
 
 
-def lm_iteration(carry: tuple, cfg: RegistrationConfig, linearize_at, error_at) -> tuple:
+def _summed(linearize_at, error_at, group):
+    """The model's functions with H, b and y0 at each linearization and the
+    error of each try summed over ``group`` (the reference's ``_reduce``,
+    a psum over the mesh axis that shards the source points)."""
+    def lin(T):
+        H, b, y0, ctx = linearize_at(T)
+        return all_sum(H, group), all_sum(b, group), all_sum(y0, group), ctx
+
+    return lin, lambda T, ctx: all_sum(error_at(T, ctx), group)
+
+
+def lm_iteration(carry: tuple, cfg: RegistrationConfig, linearize_at, error_at, group=None) -> tuple:
     """One outer LM (or GN) iteration over B problems with no host read:
     ``linearize_at(T) -> (H [B,6,6], b [B,6], y0 [B], ctx)`` fixes the
     correspondences at T, ``error_at(T, ctx) -> [B]`` is the error under
     them. LM always runs ``cfg.lm_max_iterations`` tries (``lm_try``); a
     problem that is not active (``lm_active``) comes out bitwise unchanged.
-    Returns the next carry (``lm_init``)."""
+    With a process ``group`` (each rank holding part of the source points)
+    H, b, y0 and each try's error are summed over it, so every rank steps
+    alike. Returns the next carry (``lm_init``)."""
+    if group is not None:
+        linearize_at, error_at = _summed(linearize_at, error_at, group)
     T, lam, converged, failed, it, Hf = carry
     active = lm_active(carry, cfg)
     H, b, y0, ctx = linearize_at(T)
@@ -197,7 +219,7 @@ def lm_iteration(carry: tuple, cfg: RegistrationConfig, linearize_at, error_at) 
     )
 
 
-def solve_lm(T0: torch.Tensor, cfg: RegistrationConfig, linearize_at, error_at):
+def solve_lm(T0: torch.Tensor, cfg: RegistrationConfig, linearize_at, error_at, group=None):
     """The LsqRegistration LM/GN loop (lsq_registration_impl.hpp:55-173)
     over B problems, eagerly: ``lm_iteration`` up to ``cfg.max_iterations``
     times, reading one flag from the device after each (whether any problem
@@ -205,7 +227,7 @@ def solve_lm(T0: torch.Tensor, cfg: RegistrationConfig, linearize_at, error_at):
     iterations)."""
     carry = lm_init(T0, cfg)
     for i in range(cfg.max_iterations):
-        carry = lm_iteration(carry, cfg, linearize_at, error_at)
+        carry = lm_iteration(carry, cfg, linearize_at, error_at, group)
         if i + 1 < cfg.max_iterations and not bool(lm_active(carry, cfg).any()):
             break
     T, _, converged, _, it, Hf = carry
@@ -213,18 +235,25 @@ def solve_lm(T0: torch.Tensor, cfg: RegistrationConfig, linearize_at, error_at):
 
 
 def run_registration(model, problem: tuple, T0: torch.Tensor, cfg: RegistrationConfig,
-                     graphs: GraphedRegistration | None = None) -> RegistrationResult:
+                     graphs: GraphedRegistration | None = None, group=None) -> RegistrationResult:
     """``solve_lm`` and the final correspondence statistics of one
     registration. ``model(*problem, cfg) -> (linearize_at, error_at,
     final_at)`` builds the path's functions over its fixed inputs
     ``problem`` (tensors); ``final_at(T) -> (error, correspondences,
     fitness)``. With ``graphs`` (on the card) the iteration and the final
-    step replay CUDA graphs; without, they run eagerly, as on the CPU."""
+    step replay CUDA graphs; without, they run eagerly, as on the CPU.
+    With a process ``group`` (the model-parallel registration: each rank
+    holds part of the source points) the sums are taken over the group and
+    the model is built as ``model(*problem, cfg, group=group)``; that runs
+    eagerly."""
+    if graphs is not None and group is not None:
+        raise ValueError("a registration summed over a process group runs eagerly (graphs=None)")
     if graphs is not None:
         T, Hf, converged, it, error, ncorr, fitness = graphs(model, problem, T0, cfg)
     else:
-        linearize_at, error_at, final_at = model(*problem, cfg)
-        T, Hf, converged, it = solve_lm(T0, cfg, linearize_at, error_at)
+        linearize_at, error_at, final_at = (
+            model(*problem, cfg) if group is None else model(*problem, cfg, group=group))
+        T, Hf, converged, it = solve_lm(T0, cfg, linearize_at, error_at, group)
         error, ncorr, fitness = final_at(T)
     return RegistrationResult(
         T=T, H=Hf, error=error, converged=converged, iterations=it,
@@ -482,10 +511,16 @@ def exact_problem(source: PreparedCloud, target: PreparedCloud) -> tuple:
             tgt_sent, tmask, tgt_feats)
 
 
-def exact_model(src_xyz, src_mask, src_cov, tgt_sent, tmask, tgt_feats, cfg: RegistrationConfig):
+def exact_model(src_xyz, src_mask, src_cov, tgt_sent, tmask, tgt_feats, cfg: RegistrationConfig,
+                group=None):
     """``run_registration``'s functions for the exact path over
-    ``exact_problem``'s inputs."""
+    ``exact_problem``'s inputs. With a process ``group`` the final
+    correspondence count, the fitness numerator and the final error are
+    summed over it (the iteration's sums are ``lm_iteration``'s)."""
     source = PreparedCloud(xyz=src_xyz, mask=src_mask, cov=src_cov)
+
+    def reduce(x):
+        return x if group is None else all_sum(x, group)
 
     def linearize_at(T):
         c = _correspondences(T, source, tgt_sent, tmask, tgt_feats, cfg)
@@ -497,23 +532,24 @@ def exact_model(src_xyz, src_mask, src_cov, tgt_sent, tmask, tgt_feats, cfg: Reg
     def final_at(T):
         # final correspondence stats at the solution
         c = _correspondences(T, source, tgt_sent, tmask, tgt_feats, cfg)
-        ncorr = torch.sum(c.corr, dim=-1)
-        fitness = torch.sum(torch.where(c.corr, c.d2, 0.0), dim=-1) / torch.clamp_min(ncorr, 1)
+        ncorr = reduce(torch.sum(c.corr, dim=-1))
+        fitness = reduce(torch.sum(torch.where(c.corr, c.d2, 0.0), dim=-1)) / torch.clamp_min(ncorr, 1)
         _, _, final_err = _linearize(T, source, c)
-        return final_err, ncorr.to(torch.int32), fitness
+        return reduce(final_err), ncorr.to(torch.int32), fitness
 
     return linearize_at, error_at, final_at
 
 
 def register(
     source: PreparedCloud, target: PreparedCloud, guess: torch.Tensor, cfg: RegistrationConfig,
-    graphs: GraphedRegistration | None = None,
+    graphs: GraphedRegistration | None = None, group=None,
 ) -> RegistrationResult:
     """Exact LM/GN alignment of B sources onto B targets (the reference's
-    ``register``): fields [B, N, ...], guess [B, 4, 4]; ``graphs`` as in
-    ``run_registration``."""
+    ``register``): fields [B, N, ...], guess [B, 4, 4]; ``graphs`` and
+    ``group`` (the reference's ``axis_name``: this rank holds part of the
+    source points, the target is whole) as in ``run_registration``."""
     return run_registration(exact_model, exact_problem(source, target),
-                            guess.to(source.xyz.dtype), cfg, graphs)
+                            guess.to(source.xyz.dtype), cfg, graphs, group)
 
 
 # ---- dispatch -----------------------------------------------------------------

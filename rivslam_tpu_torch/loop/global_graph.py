@@ -147,8 +147,10 @@ def _gps_weights(g: PoseGraph, dtype) -> torch.Tensor:
     return g.gps_info * g.gps_mask[:, None].to(dtype)
 
 
-def _build_rhs_and_diag(g: PoseGraph, ei, ej, r, Ji, Jj, W):
-    """gradient = sum J^T W r scattered per node; block-diagonal of H."""
+def _build_rhs_and_diag(g: PoseGraph, ei, ej, r, Ji, Jj, W, reduce=None):
+    """gradient = sum J^T W r scattered per node; block-diagonal of H.
+    ``reduce`` sums the edges' parts over the ranks that hold the other
+    edges (``dist/dist_graph.py``); the priors are added once, after it."""
     K = g.R.shape[0]
     Wr = torch.einsum("eij,ej->ei", W, r)
     grad = _scatter(K, ei, torch.einsum("eji,ej->ei", Ji, Wr)) + _scatter(
@@ -156,6 +158,8 @@ def _build_rhs_and_diag(g: PoseGraph, ei, ej, r, Ji, Jj, W):
     Hii = torch.einsum("eji,ejk,ekl->eil", Ji, W, Ji)
     Hjj = torch.einsum("eji,ejk,ekl->eil", Jj, W, Jj)
     diag = _scatter(K, ei, Hii) + _scatter(K, ej, Hjj)
+    if reduce is not None:
+        grad, diag = reduce(grad), reduce(diag)
     # anchor prior on node 0 (identity-measurement EdgeSE3 to a fixed node,
     # nodelet:689-691) + tiny Tikhonov so unconstrained nodes stay put
     anchor_r = torch.cat([lie.so3_log(g.R[0]), g.p[0]])
@@ -170,13 +174,16 @@ def _build_rhs_and_diag(g: PoseGraph, ei, ej, r, Ji, Jj, W):
     return grad, diag
 
 
-def _hvp(g: PoseGraph, ei, ej, Ji, Jj, W, v):
-    """H v with H = sum_e J_e^T W_e J_e (+ anchor, GPS, Tikhonov), v [K,6]."""
+def _hvp(g: PoseGraph, ei, ej, Ji, Jj, W, v, reduce=None):
+    """H v with H = sum_e J_e^T W_e J_e (+ anchor, GPS, Tikhonov), v [K,6];
+    ``reduce`` as in ``_build_rhs_and_diag``."""
     K = g.R.shape[0]
     Jv = torch.einsum("eij,ej->ei", Ji, v[ei]) + torch.einsum("eij,ej->ei", Jj, v[ej])
     WJv = torch.einsum("eij,ej->ei", W, Jv)
     out = _scatter(K, ei, torch.einsum("eji,ej->ei", Ji, WJv)) + _scatter(
         K, ej, torch.einsum("eji,ej->ei", Jj, WJv))
+    if reduce is not None:
+        out = reduce(out)
     out[0] += g.anchor_info @ v[0]
     out[:, 3:] += _gps_weights(g, v.dtype) * v[:, 3:]
     return out + 1e-6 * v
@@ -191,9 +198,17 @@ def solve_pose_graph(
     g: PoseGraph, gn_iters: int = 10, cg_iters: int = 64, huber_delta: float = 1.0
 ) -> tuple[PoseGraph, torch.Tensor]:
     """Gauss-Newton with block-Jacobi-preconditioned CG. Returns (graph, chi2)."""
+    return gauss_newton_pcg(g, lambda gc: linearize(gc, huber_delta), gn_iters, cg_iters)
+
+
+def gauss_newton_pcg(g: PoseGraph, linearize_fn, gn_iters: int, cg_iters: int, reduce=None):
+    """``solve_pose_graph``'s iterations over the edges ``linearize_fn(g)``
+    linearizes (``linearize``'s tuple); ``reduce`` sums the edge-wise parts
+    over the ranks that hold the other edges (``dist/dist_graph.py``).
+    Returns (graph, the chi2 of ``linearize_fn`` at the solution)."""
     for _ in range(gn_iters):
-        ei, ej, r, Ji, Jj, W, _ = linearize(g, huber_delta)
-        grad, diag = _build_rhs_and_diag(g, ei, ej, r, Ji, Jj, W)
+        ei, ej, r, Ji, Jj, W, _ = linearize_fn(g)
+        grad, diag = _build_rhs_and_diag(g, ei, ej, r, Ji, Jj, W, reduce)
         Minv = torch.linalg.inv(diag)
 
         def precond(x):
@@ -206,7 +221,7 @@ def solve_pose_graph(
         pdir = z
         rz = torch.sum(b * z)
         for _ in range(cg_iters):
-            Ap = _hvp(g, ei, ej, Ji, Jj, W, pdir)
+            Ap = _hvp(g, ei, ej, Ji, Jj, W, pdir, reduce)
             alpha = rz / torch.clamp_min(torch.sum(pdir * Ap), 1e-30)
             x = x + alpha * pdir
             rr = rr - alpha * Ap
@@ -216,7 +231,7 @@ def solve_pose_graph(
             pdir = z + beta * pdir
             rz = rz_new
         g = dataclasses.replace(g, R=g.R @ lie.so3_exp(x[:, :3]), p=g.p + x[:, 3:])
-    return g, linearize(g, huber_delta)[-1]
+    return g, linearize_fn(g)[-1]
 
 
 def compact(g: PoseGraph, keep, kf_count: int):

@@ -467,7 +467,7 @@ class Engine:
         draws = self._draw_sequence(len(stacked["stamps"]), n, self._generator, self._uniforms_fn)
         return self._replay(self._prep_stacked(stacked), draws)
 
-    def replay_fleet(self, stacked: dict, mesh=None) -> dict:
+    def replay_fleet(self, stacked: dict, mesh=None, axis: str = "data") -> dict:
         """B independent sequences (every array of a ``stack_sequence`` dict
         with a leading [B]; equal F and capacities), each replayed as
         ``replay_sequence`` replays one; returns its dict with a leading
@@ -477,23 +477,35 @@ class Engine:
         with ``fleet_seed(base, b)``, where ``base`` is one draw from the
         Engine's generator at this call (the reference folds b into the
         session key); the ``uniforms`` seam is called as
-        ``uniforms(frame_index, shape, sequence=b)``. ``mesh`` (the fleet
-        sharded over several cards) belongs to the distributed layer."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "replay_fleet(mesh=...) is not ported yet: see ROADMAP.md, queue 1, item 6 "
-                "(the distributed layer, dist/)"
-            )
+        ``uniforms(frame_index, shape, sequence=b)``.
+
+        With a ``mesh`` (``dist/mesh.py``; every rank calls with the whole
+        batch) each rank of ``axis`` replays its contiguous slice of the B
+        sequences, sequence b still seeded with ``fleet_seed(base, b)`` for
+        its global b and ``base`` taken from axis rank 0, and the outputs
+        are gathered: every rank returns what the unmeshed call returns.
+        B must divide by the axis size."""
         B, F = np.asarray(stacked["stamps"]).shape
         n = np.asarray(stacked["xyz"]).shape[-2]
         base = int(torch.randint(0, 2**62, (), generator=self._generator))
+        mine = range(B)
+        if mesh is not None:
+            from rivslam_tpu_torch.dist import mesh as dmesh
+
+            group = mesh.get_group(axis)
+            base = int(dmesh.all_gather_rows(torch.tensor([base], device=self.device), group)[0])
+            mine = dmesh.local_slice(torch.arange(B), mesh, axis).tolist()
         outs = []
-        for b in range(B):
+        for b in mine:
             gen = torch.Generator().manual_seed(fleet_seed(base, b))
             seam = None if self._uniforms_fn is None else functools.partial(self._uniforms_fn, sequence=b)
             draws = self._draw_sequence(F, n, gen, seam)
             outs.append(self._replay(self._prep_stacked({k: v[b] for k, v in stacked.items()}), draws))
-        return {k: np.stack([o[k] for o in outs]) for k in outs[0]}
+        out = {k: np.stack([o[k] for o in outs]) for k in outs[0]}
+        if mesh is not None:
+            out = {k: dmesh.all_gather_rows(torch.as_tensor(v, device=self.device), group).cpu().numpy()
+                   for k, v in out.items()}
+        return out
 
     def _draw_sequence(self, F: int, n: int, generator, uniforms) -> tuple[torch.Tensor, torch.Tensor]:
         """Every frame's RANSAC scores, drawn on the CPU in

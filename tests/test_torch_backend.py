@@ -12,6 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+import torch_shared_cache  # noqa: F401  (one torch thread per test process)
 from test_window_solver import BIAS_INFO, build_problem
 
 from rivslam_tpu.backend import slam as ref_slam

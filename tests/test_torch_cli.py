@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import torch_shared_cache  # noqa: F401  (one torch thread per test process)
 
 from rivslam_tpu_torch import __main__ as cli
 from rivslam_tpu_torch import pipeline

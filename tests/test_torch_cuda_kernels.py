@@ -860,3 +860,39 @@ def test_replay_on_the_card_equals_process_frame(dev):
         one = pipeline.Engine(cfg, seed=pipeline.fleet_seed(base, b), device=dev).replay_sequence(
             {k: v[b] for k, v in batch.items()})
         np.testing.assert_array_equal(fleet["pose"][b], one["pose"])
+
+
+@pytest.fixture
+def nccl_world(dev, tmp_path):
+    """A NCCL process group of one rank and its (1, 1) mesh."""
+    from rivslam_tpu_torch.dist import mesh as mesh_mod
+
+    mesh_mod.init_world("nccl", 0, 1, str(tmp_path / "init"), timeout_s=60.0)
+    try:
+        yield mesh_mod.make_mesh(1, 1)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _exact_pairs(dev, B):
+    cfg = RegistrationConfig(use_fast_path=False)
+    *data, _ = synthetic.load_pairs(B, 512, device=dev)
+    src, tgt = (apdgicp.prepare(x, m, cfg, device=dev) for x, m in (data[:2], data[2:]))
+    return src, tgt, torch.eye(4, device=dev).expand(B, 4, 4).contiguous(), cfg
+
+
+@pytest.mark.parametrize("which", ["batched_register", "sharded_register"])
+def test_distributed_registration_runs_through_k2(dev, nccl_world, which):
+    """On a world of one rank both distributed registrations launch K2 and
+    equal the local ``register`` bitwise."""
+    from rivslam_tpu_torch.dist import dist_gn
+
+    B = 8 if which == "batched_register" else 1
+    src, tgt, guess, cfg = _exact_pairs(dev, B)
+    nn_corr.fused_correspondence.launches = 0
+    got = getattr(dist_gn, which)(src, tgt, guess, cfg, nccl_world)
+    torch.cuda.synchronize()
+    assert nn_corr.fused_correspondence.launches > 0
+    want = apdgicp.register(src, tgt, guess, cfg)
+    for f in ("T", "H", "error", "converged", "iterations", "num_correspondences", "fitness"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f

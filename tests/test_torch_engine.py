@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_shared_cache import shared  # also: one torch thread per test process
 
 from rivslam_tpu import pipeline as ref_pipeline
 from rivslam_tpu import presets as ref_presets
@@ -66,8 +67,34 @@ def _cfg(mod):
     )
 
 
+def _host(x):
+    """x with every array (JAX, torch) as a numpy array, through dicts,
+    lists and tuples."""
+    if isinstance(x, dict):
+        return {k: _host(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_host(v) for v in x)
+    if hasattr(x, "__array__") and not isinstance(x, np.ndarray):
+        return np.asarray(x)
+    return x
+
+
+def _engine_view(eng, outs):
+    """(what the tests read from the engine, the per-frame outputs), in numpy
+    and plain values: the fixture's result is shared between test
+    processes."""
+    st = eng.state
+    view = dict(trajectory=eng.trajectory(), kf_count=int(st.kf_count), kf_accum=_host(st.kf_accum),
+                kf_stamps=_host(st.kf_stamps))
+    return view, _host(outs)
+
+
 @pytest.fixture(scope="module")
-def runs():
+def runs(request):
+    return shared(request, "engine_runs", _runs)
+
+
+def _runs():
     ref_seq, _ = ref_syn.simulate_sequence(**COURSE)
     seq, _ = synthetic.simulate_sequence(**COURSE)
     # the JAX engine's per-frame key chain (pipeline.py:405) and its draws
@@ -82,9 +109,9 @@ def runs():
     out = {}
     for kind, jdt, tdt in (("f64", jnp.float64, torch.float64), ("f32", jnp.float32, torch.float32)):
         ref_eng = ref_pipeline.Engine(_cfg(ref_presets), dtype=jdt, seed=ENGINE_SEED)
-        out["ref_" + kind] = (ref_eng, ref_datasets.replay(ref_eng, ref_seq, CAP, IMU_CAP))
+        out["ref_" + kind] = _engine_view(ref_eng, ref_datasets.replay(ref_eng, ref_seq, CAP, IMU_CAP))
         eng = pipeline.Engine(_cfg(presets), dtype=tdt, seed=ENGINE_SEED, device="cpu", uniforms=draws)
-        out[kind] = (eng, datasets.replay(eng, seq, CAP, IMU_CAP))
+        out[kind] = _engine_view(eng, datasets.replay(eng, seq, CAP, IMU_CAP))
     return out
 
 
@@ -139,14 +166,14 @@ def test_engine_outputs_and_trajectory(runs):
         if r["status"] is not None:
             assert set(g["status"]) == set(r["status"])
             assert g["status"]["num_correspondences"] == r["status"]["num_correspondences"]
-    ts, poses = eng.trajectory()
-    ref_ts, ref_poses = ref_eng.trajectory()
+    ts, poses = eng["trajectory"]
+    ref_ts, ref_poses = ref_eng["trajectory"]
     np.testing.assert_array_equal(ts, ref_ts)
     np.testing.assert_array_equal(poses, _poses(got))
     np.testing.assert_allclose(poses, ref_poses, rtol=0, atol=POSE_ATOL_F64)
-    assert eng.state.kf_count == int(ref_eng.state.kf_count) == 3
-    np.testing.assert_allclose(eng.state.kf_accum, ref_eng.state.kf_accum, atol=1e-6)
-    np.testing.assert_array_equal(eng.state.kf_stamps, ref_eng.state.kf_stamps)
+    assert eng["kf_count"] == ref_eng["kf_count"] == 3
+    np.testing.assert_allclose(eng["kf_accum"], ref_eng["kf_accum"], atol=1e-6)
+    np.testing.assert_array_equal(eng["kf_stamps"], ref_eng["kf_stamps"])
 
 
 def test_engine_draws_come_from_its_seed():

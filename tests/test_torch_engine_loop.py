@@ -36,6 +36,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_shared_cache import shared  # also: one torch thread per test process
 
 from rivslam_tpu import pipeline as ref_pipeline
 from rivslam_tpu import presets as ref_presets
@@ -96,9 +97,33 @@ def _run_both(course, **reg):
     return (ref_eng, ref), (eng, datasets.replay(eng, seq, cap, IMU_CAP))
 
 
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _engine_view(eng, outs) -> dict:
+    """What the tests read from a loop-closing engine run, in numpy and
+    plain values (a fixture's result shared between test processes)."""
+    g = eng.state.graph
+    return dict(
+        outs=[{"is_keyframe": bool(o["is_keyframe"]), "loop_found": bool(o["loop_found"]),
+               "pose": _np(o["pose"]), "odom": _np(o["odom"])} for o in outs],
+        loop_stats=dict(eng.loop_stats), kf_count=int(eng.state.kf_count),
+        graph={name: _np(getattr(g, name)) for name in ("loop_mask", "loop_i", "loop_j")},
+        kf_poses=eng.optimized_keyframe_poses(),
+        trajectory={c: eng.trajectory(corrected=c) for c in (True, False)},
+        timers=set(eng.timers.summary()),
+    )
+
+
+def _loop_views():
+    (ref_eng, ref), (eng, got) = _run_both(LOOP_COURSE)
+    return _engine_view(ref_eng, ref), _engine_view(eng, got)
+
+
 @pytest.fixture(scope="module")
-def loop_runs():
-    return _run_both(LOOP_COURSE)
+def loop_runs(request):
+    return shared(request, "engine_loop_runs", _loop_views)
 
 
 def _stack(outs, key):
@@ -106,33 +131,30 @@ def _stack(outs, key):
 
 
 def test_loop_engine_matches_reference(loop_runs):
-    (ref_eng, ref), (eng, got) = loop_runs
-    assert [o["is_keyframe"] for o in got] == [o["is_keyframe"] for o in ref]
-    assert [o["loop_found"] for o in got] == [o["loop_found"] for o in ref]
-    assert sum(o["loop_found"] for o in got) >= 1
-    assert eng.loop_stats == ref_eng.loop_stats and eng.loop_stats["accepted"] >= 1
+    ref, got = loop_runs
+    assert [o["is_keyframe"] for o in got["outs"]] == [o["is_keyframe"] for o in ref["outs"]]
+    assert [o["loop_found"] for o in got["outs"]] == [o["loop_found"] for o in ref["outs"]]
+    assert sum(o["loop_found"] for o in got["outs"]) >= 1
+    assert got["loop_stats"] == ref["loop_stats"] and got["loop_stats"]["accepted"] >= 1
     for key in ("pose", "odom"):
-        np.testing.assert_allclose(_stack(got, key), _stack(ref, key), rtol=0, atol=LOOP_POSE_ATOL_F64)
+        np.testing.assert_allclose(_stack(got["outs"], key), _stack(ref["outs"], key), rtol=0,
+                                   atol=LOOP_POSE_ATOL_F64)
 
 
 def test_loop_engine_graph_and_trajectories(loop_runs):
-    (ref_eng, _), (eng, _) = loop_runs
-    n = eng.state.kf_count
-    assert n == int(ref_eng.state.kf_count)
-    g, rg = eng.state.graph, ref_eng.state.graph
-    np.testing.assert_array_equal(g.loop_mask.numpy(), np.asarray(rg.loop_mask))
-    np.testing.assert_array_equal(g.loop_i.numpy(), np.asarray(rg.loop_i))
-    np.testing.assert_array_equal(g.loop_j.numpy(), np.asarray(rg.loop_j))
-    np.testing.assert_allclose(eng.optimized_keyframe_poses(), ref_eng.optimized_keyframe_poses(),
-                               rtol=0, atol=LOOP_POSE_ATOL_F64)
+    ref, got = loop_runs
+    assert got["kf_count"] == ref["kf_count"]
+    for name in ("loop_mask", "loop_i", "loop_j"):
+        np.testing.assert_array_equal(got["graph"][name], ref["graph"][name])
+    np.testing.assert_allclose(got["kf_poses"], ref["kf_poses"], rtol=0, atol=LOOP_POSE_ATOL_F64)
     for corrected in (True, False):
-        ts, poses = eng.trajectory(corrected=corrected)
-        ref_ts, ref_poses = ref_eng.trajectory(corrected=corrected)
+        ts, poses = got["trajectory"][corrected]
+        ref_ts, ref_poses = ref["trajectory"][corrected]
         np.testing.assert_array_equal(ts, ref_ts)
         np.testing.assert_allclose(poses, ref_poses, rtol=0, atol=LOOP_POSE_ATOL_F64)
     # the loop moved the corrected trajectory off the raw one
-    assert np.abs(eng.trajectory()[1] - eng.trajectory(corrected=False)[1]).max() > 1e-3
-    assert set(eng.timers.summary()) >= {"frame_step", "loop", "graph_opt"}
+    assert np.abs(got["trajectory"][True][1] - got["trajectory"][False][1]).max() > 1e-3
+    assert got["timers"] >= {"frame_step", "loop", "graph_opt"}
 
 
 def _chip_smoke():

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_shared_cache  # noqa: F401  (one torch thread per test process)
 
 from rivslam_tpu.core.config import RegistrationConfig as RefConfig
 from rivslam_tpu.frontend import apdgicp as ref_apdgicp

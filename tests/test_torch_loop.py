@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_shared_cache  # noqa: F401  (one torch thread per test process)
 
 from rivslam_tpu.core import lie as ref_lie
 from rivslam_tpu.core import pointcloud as ref_pc

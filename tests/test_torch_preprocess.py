@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_shared_cache  # noqa: F401  (one torch thread per test process)
 
 from rivslam_tpu.core import config as ref_config
 from rivslam_tpu.core.pointcloud import RadarCloud as RefCloud

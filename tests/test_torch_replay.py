@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_shared_cache  # noqa: F401  (one torch thread per test process)
 
 from rivslam_tpu import pipeline as ref_pipeline
 from rivslam_tpu import presets as ref_presets
@@ -130,10 +131,12 @@ def test_replay_matches_reference(course):
         assert err <= 2.0 * ref_err + floor, (k, err, ref_err)
 
 
-def test_replay_fleet_equals_single_replays(course):
+def test_replay_fleet_equals_single_replays(course, tmp_path):
     """Two 3-frame sequences as a fleet: each equals, bitwise, the single
     replay on an Engine seeded with its fleet seed; through the seam, each
-    sequence's draws are called with its index; a mesh is refused."""
+    sequence's draws are called with its index; on a mesh of one rank the
+    fleet is the unmeshed fleet, bitwise (more ranks:
+    tests/test_torch_dist.py)."""
     stacks = [datasets.stack_sequence(synthetic.simulate_sequence(**dict(COURSE, n_frames=3, seed=s))[0],
                                       CAP, IMU_CAP) for s in (21, 22)]
     batch = {k: np.stack([st[k] for st in stacks]) for k in stacks[0]}
@@ -157,8 +160,15 @@ def test_replay_fleet_equals_single_replays(course):
     assert sorted(set(calls)) == [(0, 0), (0, 1), (1, 0), (1, 1)]
     single = pipeline.Engine(_cfg(presets), device="cpu", uniforms=lambda i, shape: seam(i, shape, sequence=1))
     _assert_bitwise({k: v[1] for k, v in fleet.items()}, single.replay_sequence({k: v[1] for k, v in two.items()}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.Engine(_cfg(presets), device="cpu").replay_fleet(two, mesh=object())
+    from rivslam_tpu_torch.dist import mesh as mesh_mod
+
+    mesh_mod.init_world("gloo", 0, 1, str(tmp_path / "init"), timeout_s=30.0)
+    try:
+        meshed = pipeline.Engine(_cfg(presets), device="cpu", uniforms=seam).replay_fleet(
+            two, mesh=mesh_mod.make_mesh(1, 1))
+    finally:
+        torch.distributed.destroy_process_group()
+    _assert_bitwise(meshed, fleet)
 
 
 def test_replay_odometry_matches_reference(course):

@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_shared_cache  # noqa: F401  (one torch thread per test process)
 
 from rivslam_tpu import pipeline as ref_pipeline
 from rivslam_tpu import presets as ref_presets
