@@ -52,9 +52,15 @@ configurations of chip_smoke.py phases 9-10 (the cp preset for engine seeds
 over the garden course, prints the sha256 of each run's corrected and
 uncorrected trajectories, as chip_smoke.py does, and holds each run's ATE
 to 1.5x the JAX engine's for its seed (chip_smoke.py's REF; cp seeds 1 and
-2 and the shipped garden preset are held here only). With ``--root
-DIR`` both import the port from the checkout at DIR instead of this one: run
-two checkouts in one call, in turns (a, b, b, a), to compare them on one card.
+2 and the shipped garden preset are held here only); each cp run's
+per-frame position gap to the JAX engine's run of the same seed
+(chip_smoke.jax_gap) is printed, and held to chip_smoke.max_gap_m for this
+checkout; ``--seeds S...`` runs other cp seeds (a seed without a JAX
+figure is printed, not held), ``--nudge up|down`` the cp course with every
+point moved one float32 ulp (printed, not held: the card's own rounding
+spread). With ``--root DIR`` both import the port from the checkout at DIR
+instead of this one: run two checkouts in one call, in turns (a, b, b, a),
+to compare them on one card.
 
 The last line is one JSON object with these numbers. Needs a CUDA device.
 """
@@ -90,6 +96,10 @@ def main() -> None:
     ap.add_argument("--kernels", action="store_true", help="time K1-K3 through the wrappers")
     ap.add_argument("--digest", action="store_true", help="digests of the engine runs' trajectories")
     ap.add_argument("--root", help="with --kernels or --digest: import the port from this checkout")
+    ap.add_argument("--seeds", type=int, nargs="+", default=DIGEST_SEEDS,
+                    help="with --digest: the cp preset's engine seeds (those without a JAX figure are not held)")
+    ap.add_argument("--nudge", choices=("up", "down"),
+                    help="with --digest: move every cp point one float32 ulp (printed, not held)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch: no CUDA device")
@@ -389,43 +399,62 @@ def digest_engine(args) -> None:
     import numpy as np
 
     import rivslam_tpu_torch
-    from chip_smoke import (COURSE, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY, GARDEN_COURSE, MAX_ATE_RATIO, REF,
-                            exact_cfg, garden_cfg, preset_cfg)
+    from chip_smoke import (COURSE, CPU_GAP_M, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY, GARDEN_COURSE, JAX_RUNS,
+                            MAX_ATE_RATIO, REF, exact_cfg, garden_cfg, jax_gap, jax_run_name, max_gap_m,
+                            nudged, preset_cfg)
     from rivslam_tpu_torch import pipeline, presets
     from rivslam_tpu_torch.eval import ate
     from rivslam_tpu_torch.io import datasets, synthetic
 
     root = os.path.dirname(rivslam_tpu_torch.__file__)
+    jax_runs = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), JAX_RUNS))
     courses = {}
     for name, params in (("cp", COURSE), ("garden", GARDEN_COURSE)):
         seq, _ = synthetic.simulate_sequence(**params)
+        if name == "cp":
+            seq = nudged(seq, args.nudge)
         courses[name] = (seq, np.linalg.inv(seq.gt_poses[0]) @ seq.gt_poses)
-    out, ates = {}, {}
-    for key, cfg, seeds, course in (("preset", preset_cfg(presets), DIGEST_SEEDS, "cp"),
+    out, ates, gaps = {}, {}, {}
+    for key, cfg, seeds, course in (("preset", preset_cfg(presets), args.seeds, "cp"),
                                     ("exact", exact_cfg(), (0,), "cp"),
                                     ("garden", garden_cfg(presets), (0,), "garden")):
         seq, gt = courses[course]
         for seed in seeds:
             eng = pipeline.Engine(cfg, seed=seed, device="cuda")
-            datasets.replay(eng, seq, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY)
-            h, run = hashlib.sha256(), f"{key} seed {seed}"
+            outs = datasets.replay(eng, seq, ENGINE_CAPACITY, ENGINE_IMU_CAPACITY)
+            h, run, positions = hashlib.sha256(), f"{key} seed {seed}", {}
             for corrected in (True, False):
                 ts, poses = eng.trajectory(corrected=corrected)
                 h.update(np.ascontiguousarray(poses).tobytes())
+                positions["corrected" if corrected else "uncorrected"] = poses[:, :3, 3]
                 g = gt[[int(np.argmin(np.abs(seq.gt_stamps - t))) for t in ts]]
                 ates[f"{run} {'corrected' if corrected else 'uncorrected'}"] = ate.ate(
                     poses[:, :3, 3], g[:, :3, 3])["rmse"]
             out[run] = h.hexdigest()[:16]
-            ref = REF[key][seed]
+            ref = None if args.nudge and course == "cp" else REF[key].get(seed)
             print(f"port at {root}: engine {run}: sha256 of the corrected and uncorrected "
                   f"trajectories {out[run]}; ATE {ates[run + ' corrected']:.4f} / "
-                  f"{ates[run + ' uncorrected']:.4f} m (JAX engine on the CPU: {ref['ate_m']:.4f} / "
-                  f"{ref['uncorrected_ate_m']:.4f} m), loops {eng.loop_stats['accepted']}", flush=True)
+                  f"{ates[run + ' uncorrected']:.4f} m"
+                  + (f" (JAX engine on the CPU: {ref['ate_m']:.4f} / {ref['uncorrected_ate_m']:.4f} m)" if ref else "")
+                  + f", keyframes {sum(o['is_keyframe'] for o in outs)}, loops {eng.loop_stats['accepted']}",
+                  flush=True)
+            if ref is None:
+                continue
+            name, _ = jax_run_name(key, seed)
+            if key in CPU_GAP_M:
+                gaps[run] = jax_gap(jax_runs, name, positions, [o["is_keyframe"] for o in outs],
+                                    [i for i, o in enumerate(outs) if o["loop_found"]],
+                                    [-1 if o["status"] is None else o["status"]["num_correspondences"]
+                                     for o in outs])
+                print(f"port at {root}: engine {run} against the JAX engine's run {name}, per-frame position "
+                      f"gap {json.dumps(gaps[run])}; limit {max_gap_m(key):.4f} m", flush=True)
             if (ates[run + " corrected"] > MAX_ATE_RATIO * ref["ate_m"]
                     or ates[run + " uncorrected"] > MAX_ATE_RATIO * ref["uncorrected_ate_m"]):
                 raise SystemExit(f"engine {run}: ATE beyond {MAX_ATE_RATIO}x the JAX engine's")
-    print(json.dumps({"card": _smi(), "mode": "digest", "port": root, "digests": out, "ate_m": ates}),
-          flush=True)
+            if run in gaps and args.root is None and max(gaps[run][t]["max_m"] for t in positions) > max_gap_m(key):
+                raise SystemExit(f"engine {run}: positions beyond {max_gap_m(key)} m of the JAX run's")
+    print(json.dumps({"card": _smi(), "mode": "digest", "port": root, "digests": out, "ate_m": ates,
+                      "jax_gap": gaps}), flush=True)
 
 
 if __name__ == "__main__":

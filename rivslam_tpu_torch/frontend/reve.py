@@ -4,10 +4,10 @@
 All RANSAC hypotheses are drawn at once: each row of the ``uniforms``
 argument scores every target, and a hypothesis takes the targets with the
 ``n_ransac_points`` highest scores among the valid ones. The reference
-draws those scores from a ``jax.random`` key that torch cannot reproduce;
-here the caller hands them in (the Engine draws them from a seeded
-``torch.Generator``), so two runs given the same scores test the same
-hypotheses. The model is doppler_i = d_i . v with d_i the unit direction.
+draws those scores from its frame's ``jax.random`` key; here the caller
+hands them in (the Engine draws them from the same key chain,
+``core/prng.py``, bit for bit), so two runs given the same scores test the
+same hypotheses. The model is doppler_i = d_i . v with d_i the unit direction.
 
 Reference quirks kept: the 70th-percentile |doppler| zero-velocity gate
 (cpp:101-117), "regard outliers as inliers" above a 5% outlier ratio

@@ -68,16 +68,24 @@ The stages carry ``torch.profiler.record_function`` scopes
 reference's per-stage wall times.
 
 Randomness. REVE and the floor detector pick their RANSAC hypotheses from
-uniform scores (``frontend/reve.py``). The reference draws them from one
-``jax.random`` key per frame, which torch cannot reproduce. The Engine
-draws them on the CPU from a ``torch.Generator`` seeded by ``seed`` and
-moves them to the device, so a CPU run and a card run of the port see the
-same hypotheses. The one seam for the draw is the ``uniforms`` argument:
-``uniforms(frame_index, shape) -> array in [0, 1)``, called per frame for
-REVE's [ransac_iter, N] and then the floor's [ransac_iterations, N] scores
-(the parity tests feed the JAX engine's own draws through it). The replay
-calls it with the frame's index in the sequence, the fleet with
-``sequence=b`` as well.
+uniform scores (``frontend/reve.py``). The reference draws them from its
+``jax.random`` key chain, and so does the port (``core/prng.py``, JAX's
+threefry bit for bit): ``Engine(seed)`` holds ``key(seed)``, each
+``process_frame`` splits it once, ``(key, k1) = split(key)``, frame 0
+included, and draws ``uniform(k1, (max(R_reve, R_floor), N))`` in the
+Engine's dtype on its device, REVE taking its first ``R_reve`` rows and the
+floor its first ``R_floor`` (the reference draws each from k1, and a draw's
+leading rows are the smaller draw). So a port Engine with seed s tests the
+hypotheses of a JAX Engine with seed s, in float32 those of a JAX run with
+``jax_enable_x64`` off (JAX draws float64 when x64 is on), and a card run
+the CPU run's. The replay draws every frame's scores from the reference's
+``split_chain`` in one call; the fleet folds sequence b into the call's
+base key, as the reference does. The tests' seam for the draw is the
+``uniforms`` argument: ``uniforms(frame_index, shape) -> array in [0, 1)``,
+called per frame for REVE's [ransac_iter, N] and then the floor's
+[ransac_iterations, N] scores in place of the key's draw; the replay calls
+it with the frame's index in the sequence, the fleet with ``sequence=b`` as
+well.
 """
 
 from __future__ import annotations
@@ -94,7 +102,7 @@ import torch
 from torch.profiler import record_function
 
 from rivslam_tpu_torch.backend import slam
-from rivslam_tpu_torch.core import cuda_graph, lie
+from rivslam_tpu_torch.core import cuda_graph, lie, prng
 from rivslam_tpu_torch.core.config import EngineConfig
 from rivslam_tpu_torch.core.device import resolve
 from rivslam_tpu_torch.core.pointcloud import RadarCloud
@@ -195,14 +203,6 @@ def _merge_chain(live_R, live_p, solved_R, solved_p, rel_R, rel_p, k_snap: int, 
     return R, p
 
 
-def fleet_seed(base: int, b: int) -> int:
-    """The seed of sequence b's generator in ``Engine.replay_fleet``, from
-    the call's ``base`` draw: a 63-bit integer from numpy's SeedSequence of
-    (base, b), so that sequences differ and none depends on B."""
-    hi, lo = np.random.SeedSequence([base, b]).generate_state(2, np.uint32)
-    return ((int(hi) << 32) | int(lo)) & (2**63 - 1)
-
-
 @dataclasses.dataclass
 class EngineState:
     """Mutable host-side engine state (device tensors inside)."""
@@ -238,7 +238,7 @@ class Engine:
         self.cfg = cfg
         self.dtype = dtype
         self.device = resolve(device)
-        self._generator = torch.Generator().manual_seed(seed)
+        self.key = prng.key(seed)  # the reference's key chain (core/prng.py)
         self._uniforms_fn = uniforms
         self.state = EngineState()
         self.timers = StageTimers()
@@ -248,6 +248,8 @@ class Engine:
         self.graphs = slam.BackendGraphs(cfg.backend, cfg.imu, dtype, self.device) if on_card else None
         # and so does the odometry's registration, captured on its first frame
         self.reg_graphs = apdgicp.GraphedRegistration() if on_card else None
+        # and the frame's RANSAC draw, one graph per cloud capacity (_frame_draw)
+        self._draw_graphs: dict[int, cuda_graph.Graphed] = {}
         # the asynchronous loop worker (loop.async_loop): one job in flight,
         # results merged on the frame's thread at the next frame
         self._loop_thread = None
@@ -273,20 +275,49 @@ class Engine:
                                         # compaction runs first)
         }
 
-    def _uniforms(self, shape: tuple[int, int]) -> torch.Tensor:
-        """RANSAC scores for this frame: the caller's ``uniforms`` seam, or
-        the CPU generator. Drawn on the CPU, then moved to the device."""
-        if self._uniforms_fn is not None:
-            u = torch.tensor(np.asarray(self._uniforms_fn(self.state.frame_idx, shape)))
-        else:
-            u = torch.rand(shape, generator=self._generator)
-        return u.to(self.device)
-
     def _draw_shapes(self, n: int) -> tuple[tuple[int, int], tuple[int, int]]:
         """The shapes of one frame's RANSAC scores, in the order they are
         drawn: REVE's, then the floor detector's, for a cloud of n points."""
         c = self.cfg
         return (max(c.reve.ransac_iter, 1), n), (c.floor.ransac_iterations, n)
+
+    def _draw_sequence(self, keys: list, n: int, uniforms, start: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+        """The RANSAC scores of the F frames whose subkeys are ``keys``, for
+        n points: ([F, R_reve, n], [F, R_floor, n]). One draw of
+        [max(R_reve, R_floor), n] per key, in one call on the Engine's
+        device, REVE's the leading rows of the floor's; or, with the
+        ``uniforms`` seam, ``uniforms(start + i, shape)`` for frame i in
+        ``process_frame``'s order, uploaded at once."""
+        shapes = self._draw_shapes(n)
+        if uniforms is not None:
+            drawn = ([], [])
+            for i in range(len(keys)):
+                for k, shape in enumerate(shapes):
+                    drawn[k].append(torch.tensor(np.asarray(uniforms(start + i, shape))))
+            return tuple(torch.stack(d).to(self.device) for d in drawn)
+        (r_reve, _), (r_floor, _) = shapes
+        rows = max(r_reve, r_floor)
+        if len(keys) == 1 and self.device.type == "cuda":
+            u = self._frame_draw(keys[0], (rows, n))[None]
+        else:
+            u = prng.uniform_stack(keys, (rows, n), self.dtype, self.device)
+        return u[:, :r_reve], u[:, :r_floor]
+
+    def _frame_draw(self, key, shape: tuple[int, int]) -> torch.Tensor:
+        """One frame's draw of ``key`` on the card: a CUDA graph captured
+        for the shape on first use and replayed, since issued eagerly the
+        draw's ~150 elementwise launches cost over a millisecond of host time
+        a frame (chip_smoke.py phase 1b times both). The key's words go in
+        through pinned memory, with no host sync; the output is the graph's
+        own, overwritten by the next frame's draw."""
+        g = self._draw_graphs.get(shape[1])
+        if g is None:
+            words = torch.zeros((1, 2), dtype=torch.int64, device=self.device)
+            g = self._draw_graphs[shape[1]] = cuda_graph.Graphed(
+                f"RANSAC draw {shape}",
+                lambda w: prng.uniform_stack(w, shape, self.dtype, self.device)[0], [words])
+        g.inputs[0].copy_(torch.tensor([key], dtype=torch.int64).pin_memory(), non_blocking=True)
+        return g.replay()
 
     def _preprocess(self, cloud: RadarCloud, ang_vel: torch.Tensor, prev_floor: torch.Tensor, draws):
         c = self.cfg
@@ -321,16 +352,18 @@ class Engine:
         prepared = apdgicp.prepare(cl.xyz, cl.mask, c.registration, device=self.device)
         return cl, ego, prepared, fl, dynamic_mask, eff_floor
 
-    def _frame_step(self, cloud, ang_vel, stamp, imu_dts, imu_acc, imu_gyr, imu_mask, draws=None):
+    def _frame_step(self, cloud, ang_vel, stamp, imu_dts, imu_acc, imu_gyr, imu_mask, draws=None, key=None):
         """preprocess -> odometry -> backend for one frame; the first frame
         initializes the odometry and the backend instead of matching.
-        ``draws``: the frame's RANSAC scores (REVE's, the floor's), drawn
-        here when None."""
+        ``draws``: the frame's RANSAC scores (REVE's, the floor's); when
+        None, drawn here from ``key``, the frame's subkey (or the
+        ``uniforms`` seam at this frame's index)."""
         c = self.cfg
         st = self.state
         with record_function("engine.preprocess"):
             if draws is None:
-                draws = tuple(self._uniforms(shape) for shape in self._draw_shapes(cloud.capacity))
+                reve_u, floor_u = self._draw_sequence([key], cloud.capacity, self._uniforms_fn, st.frame_idx)
+                draws = (reve_u[0], floor_u[0])
             cl, ego, prepared, fl, dynamic_mask, st.floor_prev = self._preprocess(
                 cloud, ang_vel, st.floor_prev, draws
             )
@@ -380,6 +413,7 @@ class Engine:
         # merge the async worker's finished detections first, so that this
         # frame's keyframe chains onto the corrected graph
         loop_applied = self._apply_pending_loops()
+        self.key, k1 = prng.split(self.key)  # every frame, frame 0 included
         imu_acc, imu_gyr, imu_mask = np.asarray(imu_acc), np.asarray(imu_gyr), np.asarray(imu_mask)
         if c.imu.apply_extrinsics:
             # imuConverter parity (utility_radar.h:206-236)
@@ -397,7 +431,7 @@ class Engine:
         with self.timers.time("frame_step"):
             cl, ego, fl, dynamic_mask, oout, odom_pose, bout = self._frame_step(
                 cloud, t(ang_vel), t(stamp), t(imu_dts), t(imu_acc), t(imu_gyr),
-                t(imu_mask, torch.bool),
+                t(imu_mask, torch.bool), key=k1,
             )
         if oout is None:
             is_kf, reg_ok, status = True, True, None
@@ -449,22 +483,25 @@ class Engine:
         reference's loop path is offline); ``process_frame`` runs them.
 
         The inputs are uploaded once, every frame's RANSAC scores are drawn
-        before frame 0 in ``process_frame``'s order (the ``uniforms`` seam,
-        called with the frame's index in the sequence, or the Engine's
-        generator), each frame's outputs go into [F, ...] device tensors,
-        and those are copied to the host once, at the end. The frame step is
-        ``process_frame``'s, with the Engine's CUDA graphs: a fresh Engine
-        gives its loop-off ``process_frame`` trajectory bitwise. The frame
-        step still reads the host once per outer iteration of the
-        registration and of the window solve (and, with scan-to-map, once
-        for the keyframe flag); the per-frame outputs are not read. The
-        Engine's session state is left as it was.
+        before frame 0, in one call, from the F subkeys of the Engine key's
+        ``split_chain`` (the reference's per-frame keys; the key advances as
+        F ``process_frame`` calls advance it) or from the ``uniforms`` seam,
+        called with the frame's index in the sequence; each frame's outputs
+        go into [F, ...] device tensors, and those are copied to the host
+        once, at the end. The frame step is ``process_frame``'s, with the
+        Engine's CUDA graphs: a fresh Engine gives its loop-off
+        ``process_frame`` trajectory bitwise. The frame step still reads the
+        host once per outer iteration of the registration and of the window
+        solve (and, with scan-to-map, once for the keyframe flag); the
+        per-frame outputs are not read. The Engine's session state is left
+        as it was.
 
         Returns numpy arrays: odom [F,4,4], pose [F,4,4] (the window
         backend's estimate), is_keyframe [F], converged [F], chi2 [F],
         ego_vel [F,3], solver_iterations [F]."""
         n = np.asarray(stacked["xyz"]).shape[-2]
-        draws = self._draw_sequence(len(stacked["stamps"]), n, self._generator, self._uniforms_fn)
+        self.key, keys = prng.split_chain(self.key, len(stacked["stamps"]))
+        draws = self._draw_sequence(keys, n, self._uniforms_fn)
         return self._replay(self._prep_stacked(stacked), draws)
 
     def replay_fleet(self, stacked: dict, mesh=None, axis: str = "data") -> dict:
@@ -473,53 +510,42 @@ class Engine:
         ``replay_sequence`` replays one; returns its dict with a leading
         [B]. The sequences run one after another on the Engine's stream.
 
-        Sequence b draws its RANSAC scores from its own generator, seeded
-        with ``fleet_seed(base, b)``, where ``base`` is one draw from the
-        Engine's generator at this call (the reference folds b into the
-        session key); the ``uniforms`` seam is called as
+        As in the reference, the call's ``base`` is the Engine's key, which
+        then advances to ``split(key)[0]``, and sequence b draws its RANSAC
+        scores from ``split_chain(fold_in(base, b), F)``: it replays as
+        ``replay_sequence`` on an Engine whose key is ``fold_in(base, b)``.
+        The ``uniforms`` seam is called as
         ``uniforms(frame_index, shape, sequence=b)``.
 
         With a ``mesh`` (``dist/mesh.py``; every rank calls with the whole
         batch) each rank of ``axis`` replays its contiguous slice of the B
-        sequences, sequence b still seeded with ``fleet_seed(base, b)`` for
-        its global b and ``base`` taken from axis rank 0, and the outputs
-        are gathered: every rank returns what the unmeshed call returns.
-        B must divide by the axis size."""
+        sequences, sequence b still keyed ``fold_in(base, b)`` for its
+        global b and ``base`` taken from axis rank 0, and the outputs are
+        gathered: every rank returns what the unmeshed call returns. B must
+        divide by the axis size."""
         B, F = np.asarray(stacked["stamps"]).shape
         n = np.asarray(stacked["xyz"]).shape[-2]
-        base = int(torch.randint(0, 2**62, (), generator=self._generator))
+        base = self.key
+        self.key = prng.split(self.key)[0]
         mine = range(B)
         if mesh is not None:
             from rivslam_tpu_torch.dist import mesh as dmesh
 
             group = mesh.get_group(axis)
-            base = int(dmesh.all_gather_rows(torch.tensor([base], device=self.device), group)[0])
+            rows = dmesh.all_gather_rows(torch.tensor([base], dtype=torch.int64, device=self.device), group)
+            base = tuple(int(w) for w in rows[0])
             mine = dmesh.local_slice(torch.arange(B), mesh, axis).tolist()
         outs = []
         for b in mine:
-            gen = torch.Generator().manual_seed(fleet_seed(base, b))
+            _, keys = prng.split_chain(prng.fold_in(base, b), F)
             seam = None if self._uniforms_fn is None else functools.partial(self._uniforms_fn, sequence=b)
-            draws = self._draw_sequence(F, n, gen, seam)
+            draws = self._draw_sequence(keys, n, seam)
             outs.append(self._replay(self._prep_stacked({k: v[b] for k, v in stacked.items()}), draws))
         out = {k: np.stack([o[k] for o in outs]) for k in outs[0]}
         if mesh is not None:
             out = {k: dmesh.all_gather_rows(torch.as_tensor(v, device=self.device), group).cpu().numpy()
                    for k, v in out.items()}
         return out
-
-    def _draw_sequence(self, F: int, n: int, generator, uniforms) -> tuple[torch.Tensor, torch.Tensor]:
-        """Every frame's RANSAC scores, drawn on the CPU in
-        ``process_frame``'s order (per frame REVE's, then the floor's) from
-        ``uniforms(i, shape)`` or ``generator``, and uploaded at once:
-        ([F, R_reve, n], [F, R_floor, n])."""
-        drawn = ([], [])
-        for i in range(F):
-            for k, shape in enumerate(self._draw_shapes(n)):
-                if uniforms is not None:
-                    drawn[k].append(torch.tensor(np.asarray(uniforms(i, shape))))
-                else:
-                    drawn[k].append(torch.rand(shape, generator=generator))
-        return tuple(torch.stack(d).to(self.device) for d in drawn)
 
     def _prep_stacked(self, stacked: dict):
         """A stacked sequence's arrays on the device: the clouds, the

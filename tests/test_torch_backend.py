@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-import torch_shared_cache  # noqa: F401  (one torch thread per test process)
+from torch_shared_cache import release_xla_executables  # noqa: F401  (and one torch thread a process)
 from test_window_solver import BIAS_INFO, build_problem
 
 from rivslam_tpu.backend import slam as ref_slam

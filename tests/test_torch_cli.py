@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-import torch_shared_cache  # noqa: F401  (one torch thread per test process)
+from torch_shared_cache import release_xla_executables  # noqa: F401  (and one torch thread a process)
 
 from rivslam_tpu_torch import __main__ as cli
 from rivslam_tpu_torch import pipeline

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 import rivslam_tpu_torch
+from rivslam_tpu_torch.core import prng
 from rivslam_tpu_torch.core.config import RegistrationConfig
 from rivslam_tpu_torch.frontend import apdgicp
 from rivslam_tpu_torch.io import synthetic
@@ -855,11 +856,35 @@ def test_replay_on_the_card_equals_process_frame(dev):
     np.testing.assert_array_equal(rep["is_keyframe"], [o["is_keyframe"] for o in outs])
     batch = {k: np.stack([v[:3], v[3:]]) for k, v in stacked.items()}
     fleet = pipeline.Engine(cfg, seed=1, device=dev).replay_fleet(batch)
-    base = int(torch.randint(0, 2**62, (), generator=torch.Generator().manual_seed(1)))
     for b in range(2):
-        one = pipeline.Engine(cfg, seed=pipeline.fleet_seed(base, b), device=dev).replay_sequence(
-            {k: v[b] for k, v in batch.items()})
+        single = pipeline.Engine(cfg, device=dev)
+        single.key = prng.fold_in(prng.key(1), b)
+        one = single.replay_sequence({k: v[b] for k, v in batch.items()})
         np.testing.assert_array_equal(fleet["pose"][b], one["pose"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_device_draw_equals_cpu_draw(dev, dtype):
+    """The Engine's RANSAC draw (core/prng.uniform) computed on the card is
+    the CPU's bit for bit, one key and a stack of keys, at the engine's
+    shape (128 hypotheses x capacity 1024)."""
+    _, keys = prng.split_chain(prng.key(0), 3)
+    for draw in (lambda d: prng.uniform(keys[0], (128, 1024), dtype, d),
+                 lambda d: prng.uniform_stack(keys, (128, 1024), dtype, d)):
+        on_card, on_cpu = draw(dev).cpu(), draw("cpu")
+        assert on_card.dtype == on_cpu.dtype == dtype
+        assert torch.equal(on_card.view(torch.uint8), on_cpu.view(torch.uint8))
+
+
+def test_engine_frame_draw_is_the_cpu_draw(dev):
+    """The Engine's per-frame draw on the card, its CUDA graph replayed for
+    each frame's key, is the CPU's draw bit for bit."""
+    _, keys = prng.split_chain(prng.key(0), 3)
+    eng = pipeline.Engine(presets.get("cp"), device=dev)
+    for k in keys:
+        on_card = eng._frame_draw(k, (128, 1024)).cpu()
+        assert torch.equal(on_card.view(torch.int32), prng.uniform(k, (128, 1024)).view(torch.int32))
+    assert eng._draw_graphs[1024].replays == len(keys)
 
 
 @pytest.fixture

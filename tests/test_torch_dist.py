@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_shared_cache import shared
+from torch_shared_cache import release_xla_executables, shared  # noqa: F401
 
 from rivslam_tpu.core import lie as ref_lie
 from rivslam_tpu.core.config import BackendConfig as RefBackendConfig

@@ -31,7 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_shared_cache import shared  # also: one torch thread per test process
+from torch_shared_cache import release_xla_executables, shared  # noqa: F401  (and one torch thread)
 
 from rivslam_tpu import pipeline as ref_pipeline
 from rivslam_tpu import presets as ref_presets
@@ -177,8 +177,8 @@ def test_engine_outputs_and_trajectory(runs):
 
 
 def test_engine_draws_come_from_its_seed():
-    """Without the seam, the Engine's CPU generator makes a run repeatable
-    from its seed (and the same draws on the card)."""
+    """Without the seam, the Engine's key chain makes a run repeatable from
+    its seed (and the same draws on the card)."""
     seq, _ = synthetic.simulate_sequence(**dict(COURSE, n_frames=2))
     runs = [
         datasets.replay(pipeline.Engine(_cfg(presets), seed=s, device="cpu"), seq, CAP, IMU_CAP)
@@ -187,6 +187,34 @@ def test_engine_draws_come_from_its_seed():
     for a, b in zip(*runs):
         np.testing.assert_array_equal(a["pose"], b["pose"])
         np.testing.assert_array_equal(a["ego_velocity"], b["ego_velocity"])
+
+
+@pytest.mark.parametrize("kind", ["f64", "f32"])
+def test_engine_default_draws_are_the_jax_draws(kind):
+    """process_frame with its default draws (the JAX key chain in torch,
+    core/prng.py) equals, bitwise, the same Engine fed the JAX engine's
+    draws of the same seed through the seam, over 4 frames, in the Engine's
+    dtype (a float32 Engine draws what JAX draws with x64 off)."""
+    tdt, jdt = {"f64": (torch.float64, jnp.float64), "f32": (torch.float32, jnp.float32)}[kind]
+    seq, _ = synthetic.simulate_sequence(**dict(COURSE, n_frames=4))
+    key, keys = jax.random.key(ENGINE_SEED), []
+    for _ in range(4):
+        key, k1 = jax.random.split(key)
+        keys.append(k1)
+
+    def draws(frame_idx, shape):
+        return np.asarray(jax.random.uniform(keys[frame_idx], shape, dtype=jdt))
+
+    default, fed = (
+        datasets.replay(pipeline.Engine(_cfg(presets), dtype=tdt, seed=ENGINE_SEED, device="cpu", uniforms=u),
+                        seq, CAP, IMU_CAP)
+        for u in (None, draws)
+    )
+    for a, b in zip(default, fed):
+        for k in ("pose", "odom", "ego_velocity", "chi2", "is_keyframe", "registration_ok", "floor",
+                  "dynamic_points"):
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        assert a["pose"].dtype == b["pose"].dtype == (np.float32 if kind == "f32" else np.float64)
 
 
 @pytest.mark.parametrize("what", ["loop", "baro_prior", "scan_to_map", "gps", "cuda"])

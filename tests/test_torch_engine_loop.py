@@ -23,7 +23,16 @@ engine runs over the "cp" validation course (120 frames at capacity 1024,
 float32 on the CPU, simulator seed 21): full-trajectory ATE (loop-corrected
 and the window backend's own), keyframes and loops closed, for engine seeds
 0, 1 and 2 of the preset run and seed 0 of the exact run. chip_smoke.py
-holds the port's card runs to them.
+holds the port's card runs to them. The script also writes each run frame
+by frame to ``tests/torch_ref/cp_f32.npz`` (``REF_NPZ``; JAX draws float32
+there, x64 being off), which chip_smoke.py holds the card's runs to pose by
+pose. ``--jax NAME...`` (preset0-9, exact0, vgicp0, ndt0) runs more of the
+JAX engine's runs and prints their figures only; ``--port NAME...`` runs
+the port's, on the CPU in float32 with its default draws (the JAX key
+chain), and prints each run's figures and its per-frame gap to the JAX run
+of that name where the file holds one. ``--nudge up|down`` moves every
+point of the course one float32 ulp first, which shows how far an engine's
+own float32 run moves under rounding.
 """
 
 import dataclasses
@@ -36,7 +45,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_shared_cache import shared  # also: one torch thread per test process
+from torch_shared_cache import release_xla_executables, shared  # noqa: F401  (and one torch thread)
 
 from rivslam_tpu import pipeline as ref_pipeline
 from rivslam_tpu import presets as ref_presets
@@ -60,6 +69,8 @@ POSE_ATOL_F64 = 1e-4  # float64, a few frames: both engines run the same arithme
 # rounding noise in float64 too, which is where such flips start. Measured:
 # 3.4e-4 m at most (at frame 15, and from frame 43 on; below 3e-5 elsewhere).
 LOOP_POSE_ATOL_F64 = 1e-3
+# the JAX engine's runs behind chip_smoke.py's REF, per frame (script mode)
+REF_NPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_ref", "cp_f32.npz")
 
 
 def _loop_cfg(mod, capacity, **reg):
@@ -196,14 +207,34 @@ def exact_cfg_reference():
     return build_course_cfg("cp", reg_overrides={"use_fast_path": False})
 
 
-def reference_course(cfg, seed: int = ENGINE_SEED) -> dict:
-    """The JAX engine over the cp course under ``cfg``, engine seed ``seed``."""
+def save_reference_run(name: str, eng, outs) -> None:
+    """Add one JAX engine run over the cp course to ``REF_NPZ`` under
+    ``name``: its per-frame positions, loop-corrected and the window
+    backend's own (float32), its keyframe and loop flags and its odometry's
+    correspondence counts (-1 on frame 0)."""
+    data = dict(np.load(REF_NPZ)) if os.path.exists(REF_NPZ) else {}
+    for corrected, tag in ((True, "corrected"), (False, "uncorrected")):
+        data[f"{name}_{tag}"] = eng.trajectory(corrected=corrected)[1][:, :3, 3].astype(np.float32)
+    data[f"{name}_keyframe"] = np.array([bool(o["is_keyframe"]) for o in outs])
+    data[f"{name}_loop"] = np.array([bool(o["loop_found"]) for o in outs])
+    data[f"{name}_correspondences"] = np.array(
+        [-1 if o["status"] is None else o["status"]["num_correspondences"] for o in outs], np.int32)
+    os.makedirs(os.path.dirname(REF_NPZ), exist_ok=True)
+    np.savez_compressed(REF_NPZ, **data)
+
+
+def reference_course(cfg, seed: int = ENGINE_SEED, name: str | None = None, nudge: str | None = None) -> dict:
+    """The JAX engine over the cp course under ``cfg``, engine seed ``seed``,
+    the course nudged (``chip_smoke.nudged``); with ``name``, the run is
+    also saved to ``REF_NPZ``."""
     from rivslam_tpu.eval.validation import COURSES
 
-    seq, _ = ref_syn.simulate_sequence(seed=21, **COURSES["cp"])
+    seq = _chip_smoke().nudged(ref_syn.simulate_sequence(seed=21, **COURSES["cp"])[0], nudge)
     eng = ref_pipeline.Engine(cfg, dtype=jnp.float32, seed=seed)
     outs = ref_datasets.replay(eng, seq, capacity=1024, imu_capacity=64)
     eng.finalize()
+    if name is not None:
+        save_reference_run(name, eng, outs)
     gt = np.linalg.inv(seq.gt_poses[0]) @ seq.gt_poses
     res = {"frames": len(outs), "keyframes": int(sum(o["is_keyframe"] for o in outs)),
            "loops": int(eng.loop_stats["accepted"]), "loop_stats": dict(eng.loop_stats)}
@@ -215,9 +246,68 @@ def reference_course(cfg, seed: int = ENGINE_SEED) -> dict:
     return res
 
 
+def jax_course(name: str, nudge: str | None = None) -> dict:
+    """The JAX engine's run ``name`` (a configuration of chip_smoke.py's,
+    preset, exact, vgicp or ndt, and an engine seed 0-9) over the cp course,
+    nudged; nothing is saved."""
+    from rivslam_tpu.eval.validation import build_course_cfg
+
+    key, seed = name[:-1], int(name[-1])
+    cfg = {"preset": lambda: preset_cfg(ref_presets), "exact": exact_cfg_reference,
+           "vgicp": lambda: build_course_cfg("cp", "VGICP"), "ndt": lambda: build_course_cfg("cp", "NDT_OMP")}[key]()
+    return reference_course(cfg, seed, nudge=nudge)
+
+
+def port_course(name: str, nudge: str | None = None) -> dict:
+    """The port on the CPU in float32 with its default draws (the JAX key
+    chain) over the cp course, nudged: chip_smoke.py's engine run
+    ``name`` (as ``jax_course`` names it), held to the JAX run of that name
+    in ``REF_NPZ`` frame by frame (chip_smoke.jax_gap) where the file has
+    it and the course is not nudged, with its ATE."""
+    import time
+
+    from rivslam_tpu_torch.eval import ate
+
+    cs = _chip_smoke()
+    key, seed = name[:-1], int(name[-1])
+    cfg = {"preset": lambda: cs.preset_cfg(presets), "exact": cs.exact_cfg,
+           "vgicp": lambda: cs.voxel_cfg("VGICP"), "ndt": lambda: cs.voxel_cfg("NDT_OMP")}[key]()
+    seq = cs.nudged(synthetic.simulate_sequence(**cs.COURSE)[0], nudge)
+    t0 = time.perf_counter()
+    eng = pipeline.Engine(cfg, dtype=torch.float32, seed=seed, device="cpu")
+    outs = datasets.replay(eng, seq, cs.ENGINE_CAPACITY, cs.ENGINE_IMU_CAPACITY)
+    secs = time.perf_counter() - t0
+    gt = np.linalg.inv(seq.gt_poses[0]) @ seq.gt_poses
+    positions, ates = {}, {}
+    for corrected, tag in ((True, "corrected"), (False, "uncorrected")):
+        ts, poses = eng.trajectory(corrected=corrected)
+        positions[tag] = poses[:, :3, 3]
+        g = gt[[int(np.argmin(np.abs(seq.gt_stamps - t))) for t in ts]]
+        ates[tag] = ate.ate(poses[:, :3, 3], g[:, :3, 3])["rmse"]
+    ref = np.load(REF_NPZ)
+    gap = None if nudge or f"{name}_keyframe" not in ref else cs.jax_gap(
+        ref, name, positions, [o["is_keyframe"] for o in outs], [i for i, o in enumerate(outs) if o["loop_found"]],
+        [-1 if o["status"] is None else o["status"]["num_correspondences"] for o in outs])
+    return {"gap": gap, "ate_m": ates, "keyframes": int(sum(o["is_keyframe"] for o in outs)),
+            "loops": int(eng.loop_stats["accepted"]), "cpu_seconds": secs}
+
+
 if __name__ == "__main__":
+    import sys
+
+    # --port|--jax NAME... [--nudge up|down]: one engine's runs, printed only
+    args, nudge = sys.argv[1:], None
+    if "--nudge" in args:
+        i = args.index("--nudge")
+        nudge, args = args[i + 1], args[:i] + args[i + 2:]
     jax.config.update("jax_platforms", "cpu")
+    if args[:1] in (["--port"], ["--jax"]):
+        run = port_course if args[0] == "--port" else jax_course
+        for name in args[1:]:
+            print(json.dumps({"engine": args[0][2:], "nudge": nudge, name: run(name, nudge)}), flush=True)
+        raise SystemExit(0)
     for seed in (0, 1, 2):
-        print(json.dumps({"preset": reference_course(preset_cfg(ref_presets), seed), "seed": seed}),
-              flush=True)
-    print(json.dumps({"exact": reference_course(exact_cfg_reference()), "seed": ENGINE_SEED}), flush=True)
+        print(json.dumps({"preset": reference_course(preset_cfg(ref_presets), seed, f"preset{seed}"),
+                          "seed": seed}), flush=True)
+    print(json.dumps({"exact": reference_course(exact_cfg_reference(), ENGINE_SEED, "exact0"),
+                      "seed": ENGINE_SEED}), flush=True)

@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch_shared_cache  # noqa: F401  (one torch thread per test process)
+from torch_shared_cache import release_xla_executables  # noqa: F401  (and one torch thread a process)
 
 import rivslam_tpu_torch
 from rivslam_tpu.core.config import RegistrationConfig as RefConfig

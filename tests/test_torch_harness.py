@@ -10,7 +10,7 @@ import json
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch_shared_cache  # noqa: F401  (one torch thread per test process)
+from torch_shared_cache import release_xla_executables  # noqa: F401  (and one torch thread a process)
 
 from rivslam_tpu import tools as ref_tools
 from rivslam_tpu.core import lie as ref_lie

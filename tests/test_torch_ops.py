@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch_shared_cache  # noqa: F401  (one torch thread per test process)
+from torch_shared_cache import release_xla_executables  # noqa: F401  (and one torch thread a process)
 
 from rivslam_tpu.ops import eig3 as ref_eig3
 from rivslam_tpu.ops import knn as ref_knn

@@ -14,7 +14,9 @@ IMU capacity 32, the "cp" preset with loop closure off, K1 on and
   reference's own float32 departure from its float64 run (the engine
   tests' tolerances).
 - ``replay_fleet[b]`` is bitwise the single replay of sequence b on an
-  Engine seeded with sequence b's fleet seed.
+  Engine keyed ``fold_in(base, b)``, as in the reference.
+- With its default draws (``core/prng.py``) the replay and the fleet are
+  bitwise the same replays fed the JAX engine's draws through the seam.
 """
 
 import dataclasses
@@ -24,7 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch_shared_cache  # noqa: F401  (one torch thread per test process)
+from torch_shared_cache import release_xla_executables  # noqa: F401  (and one torch thread a process)
 
 from rivslam_tpu import pipeline as ref_pipeline
 from rivslam_tpu import presets as ref_presets
@@ -32,6 +34,7 @@ from rivslam_tpu.frontend import replay_device as ref_replay_device
 from rivslam_tpu.io import datasets as ref_datasets
 from rivslam_tpu.io import synthetic as ref_syn
 from rivslam_tpu_torch import pipeline, presets
+from rivslam_tpu_torch.core import prng
 from rivslam_tpu_torch.frontend import replay_device
 from rivslam_tpu_torch.io import datasets, synthetic
 
@@ -58,13 +61,15 @@ def course():
     return seq, datasets.stack_sequence(seq, CAP, IMU_CAP)
 
 
-def _jax_draws(n_frames, seed=ENGINE_SEED):
-    """The JAX engine's per-frame key chain and a seam drawing from it."""
-    key, keys = jax.random.key(seed), []
+def _jax_draws(n_frames, seed=ENGINE_SEED, dtype=float, key=None):
+    """The JAX engine's per-frame key chain from ``key`` (default
+    ``jax.random.key(seed)``) and a seam drawing from it, in ``dtype``
+    (default: JAX's, float64 under the tests' x64)."""
+    key, keys = key if key is not None else jax.random.key(seed), []
     for _ in range(n_frames):
         key, k1 = jax.random.split(key)
         keys.append(k1)
-    return lambda i, shape: np.asarray(jax.random.uniform(keys[i], shape))
+    return lambda i, shape: np.asarray(jax.random.uniform(keys[i], shape, dtype=dtype))
 
 
 def _assert_bitwise(got: dict, want: dict):
@@ -97,8 +102,8 @@ def test_replay_equals_process_frame_bitwise():
     assert rep["solver_iterations"].dtype == np.int32 and (rep["solver_iterations"][1:] >= 1).all()
     st = rep_eng.state
     assert st.frame_idx == 0 and st.odo is None and st.trajectory == [] and st.kf_count == 0
-    # the replay drew its scores from the Engine's generator, as process_frame does
-    assert torch.equal(rep_eng._generator.get_state(), eng._generator.get_state())
+    # the replay advanced the Engine's key as the process_frame loop did
+    assert rep_eng.key == eng.key
 
 
 def test_replay_matches_reference(course):
@@ -133,7 +138,7 @@ def test_replay_matches_reference(course):
 
 def test_replay_fleet_equals_single_replays(course, tmp_path):
     """Two 3-frame sequences as a fleet: each equals, bitwise, the single
-    replay on an Engine seeded with its fleet seed; through the seam, each
+    replay on an Engine keyed fold_in(base, b); through the seam, each
     sequence's draws are called with its index; on a mesh of one rank the
     fleet is the unmeshed fleet, bitwise (more ranks:
     tests/test_torch_dist.py)."""
@@ -143,11 +148,12 @@ def test_replay_fleet_equals_single_replays(course, tmp_path):
     seed = 5
     fleet = pipeline.Engine(_cfg(presets), seed=seed, device="cpu").replay_fleet(batch)
     assert fleet["pose"].shape == (2, 3, 4, 4)
-    base = int(torch.randint(0, 2**62, (), generator=torch.Generator().manual_seed(seed)))
+    base = prng.key(seed)
     for b in range(2):
-        single = pipeline.Engine(_cfg(presets), seed=pipeline.fleet_seed(base, b), device="cpu")
+        single = pipeline.Engine(_cfg(presets), device="cpu")
+        single.key = prng.fold_in(base, b)
         _assert_bitwise({k: v[b] for k, v in fleet.items()}, single.replay_sequence(stacks[b]))
-    assert pipeline.fleet_seed(base, 0) != pipeline.fleet_seed(base, 1)
+    assert prng.fold_in(base, 0) != prng.fold_in(base, 1)
 
     calls = []
 
@@ -169,6 +175,30 @@ def test_replay_fleet_equals_single_replays(course, tmp_path):
     finally:
         torch.distributed.destroy_process_group()
     _assert_bitwise(meshed, fleet)
+
+
+@pytest.mark.parametrize("kind", ["f64", "f32"])
+def test_replay_default_draws_are_the_jax_draws(course, kind):
+    """With its default draws the replay (4 frames) and the fleet (B=2 of 2
+    frames, Engine seed 5) equal, bitwise, the same replays fed the JAX
+    engine's draws through the seam: for the replay the chain of
+    ``jax.random.key(seed)``, for sequence b of the fleet the chain of
+    ``fold_in(key, b)`` (rivslam_tpu/pipeline.py's replay_fleet), drawn in
+    the Engine's dtype (a float32 Engine draws what JAX draws with x64
+    off)."""
+    tdt, jdt = {"f64": (torch.float64, jnp.float64), "f32": (torch.float32, jnp.float32)}[kind]
+    _, stacked = course
+    head = {k: v[:4] for k, v in stacked.items()}
+    default = pipeline.Engine(_cfg(presets), dtype=tdt, seed=ENGINE_SEED, device="cpu").replay_sequence(head)
+    fed = pipeline.Engine(_cfg(presets), dtype=tdt, seed=ENGINE_SEED, device="cpu",
+                          uniforms=_jax_draws(4, dtype=jdt)).replay_sequence(head)
+    _assert_bitwise(default, fed)
+    batch = {k: np.stack([v[:2], v[2:4]]) for k, v in stacked.items()}
+    seams = [_jax_draws(2, dtype=jdt, key=jax.random.fold_in(jax.random.key(5), b)) for b in range(2)]
+    fleet = pipeline.Engine(_cfg(presets), dtype=tdt, seed=5, device="cpu").replay_fleet(batch)
+    fed = pipeline.Engine(_cfg(presets), dtype=tdt, seed=5, device="cpu",
+                          uniforms=lambda i, shape, sequence: seams[sequence](i, shape)).replay_fleet(batch)
+    _assert_bitwise(fleet, fed)
 
 
 def test_replay_odometry_matches_reference(course):

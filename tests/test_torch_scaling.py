@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-import torch_shared_cache  # noqa: F401  (one torch thread per test process)
+from torch_shared_cache import release_xla_executables  # noqa: F401  (and one torch thread a process)
 
 from rivslam_tpu.eval import scaling as ref_scaling
 from rivslam_tpu_torch.eval import scaling

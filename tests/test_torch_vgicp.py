@@ -16,6 +16,8 @@ float32 on the CPU, engine seed 0) under the validation harness's
 configuration with ``method="VGICP"`` and ``method="NDT_OMP"``:
 full-trajectory ATE (loop-corrected and the window backend's own),
 keyframes and loops closed. chip_smoke.py holds the port's card runs to them.
+The runs are also written frame by frame to ``tests/torch_ref/cp_f32.npz``
+(as "vgicp0" and "ndt0"; tests/test_torch_engine_loop.py's script mode).
 """
 
 import dataclasses
@@ -26,7 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch_shared_cache  # noqa: F401  (one torch thread per test process)
+from torch_shared_cache import release_xla_executables  # noqa: F401  (and one torch thread a process)
 
 from rivslam_tpu import pipeline as ref_pipeline
 from rivslam_tpu.core import lie as ref_lie
@@ -301,10 +303,12 @@ def test_validation_course_cfg_matches_reference():
 
 def reference_voxel_course(method: str) -> dict:
     """The JAX engine over the cp validation course under the validation
-    harness's configuration with ``method``, engine seed 0."""
+    harness's configuration with ``method``, engine seed 0; the run is saved
+    to test_torch_engine_loop.REF_NPZ as "vgicp0" / "ndt0"."""
     from test_torch_engine_loop import reference_course
 
-    return reference_course(ref_validation.build_course_cfg("cp", method))
+    name = {"VGICP": "vgicp", "NDT_OMP": "ndt"}[method] + str(ENGINE_SEED)
+    return reference_course(ref_validation.build_course_cfg("cp", method), ENGINE_SEED, name)
 
 
 if __name__ == "__main__":

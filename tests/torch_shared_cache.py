@@ -18,18 +18,45 @@ each import this module.
    xdist the value is computed in the process. The value must pickle:
    the fixtures return what their tests read (numpy arrays, numbers and
    plain containers), not live engines.
+
+3. ``release_xla_executables``, an autouse fixture each test file imports:
+   before a port test, when the process holds more than
+   ``XLA_MAPS_LIMIT`` memory mappings, it clears JAX's caches. Every
+   compiled XLA:CPU program keeps its own mappings (a JAX engine test
+   leaves thousands), an xdist worker runs many such tests, and a process
+   that reaches the kernel's limit (``vm.max_map_count``, 65530 by
+   default) dies inside XLA on its next compile or cache read, failing
+   whatever test it is running. Clearing costs only a recompile (mostly a
+   read of the persistent compilation cache).
 """
 
 from __future__ import annotations
 
 import fcntl
+import gc
 import os
 import pickle
+import sys
 
+import pytest
 import torch
 
 THREADS = 1
 torch.set_num_threads(THREADS)
+# well under vm.max_map_count: the JAX tests between two port tests of one
+# worker add up to ~36,000 mappings
+XLA_MAPS_LIMIT = 20_000
+
+
+@pytest.fixture(autouse=True)
+def release_xla_executables():
+    jax = sys.modules.get("jax")
+    if jax is not None:
+        with open("/proc/self/maps") as f:
+            if sum(1 for _ in f) > XLA_MAPS_LIMIT:
+                jax.clear_caches()
+                gc.collect()
+    yield
 
 
 def shared(request, name: str, compute):
