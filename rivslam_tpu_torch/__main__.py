@@ -24,7 +24,12 @@ The flags are the JAX package's, but for three:
 - ``--device cuda|cpu`` (default cuda) picks the device; there is no
   fallback from the card to the CPU;
 - ``--profile DIR`` writes a torch.profiler trace of the replay
-  (``DIR/trace.json``, Chrome trace format);
+  (``DIR/trace.json``, Chrome trace format) and runs it with the Engine's
+  tracer on (``eval/timing``, switched on before the Engine is built):
+  ``DIR/tracer.json`` holds each frame's record, the counters' totals and
+  the span records on the trace's timeline; the counters' totals are
+  printed beside the trace, and the per-stage table under the timing
+  table;
 - ``--f64`` runs in float64, which the CUDA kernels do not take: on the card
   their float32 error is raised.
 """
@@ -112,6 +117,7 @@ def main(argv=None) -> int:
     from rivslam_tpu_torch import pipeline
     from rivslam_tpu_torch.core.config import EngineConfig
     from rivslam_tpu_torch.core.pointcloud import RadarCloud
+    from rivslam_tpu_torch.eval.timing import StageTimers
     from rivslam_tpu_torch.io import checkpoint, datasets, tum
 
     if args.seq.endswith(".bag"):
@@ -196,7 +202,10 @@ def main(argv=None) -> int:
         print(f"total sampled points: {total}")
         return 0
 
-    eng = pipeline.Engine(cfg, dtype=dtype, device=args.device)
+    # with --profile the tracer is on from before the Engine is built, so
+    # that its graph captures are traced
+    timers = StageTimers().on() if args.profile else None
+    eng = pipeline.Engine(cfg, dtype=dtype, device=args.device, timers=timers)
     if args.resume:
         checkpoint.load(eng, args.resume)
 
@@ -232,7 +241,7 @@ def main(argv=None) -> int:
                 progress=lambda i, n: print(f"frame {i}/{n}", file=sys.stderr) if i % 50 == 0 else None,
             )
     if profiler is not None:
-        _write_profile(profiler, args.profile)
+        _write_profile(profiler, args.profile, eng.timers)
 
     ts, poses = eng.trajectory()
     tum.save_tum(args.out, ts, poses)
@@ -280,10 +289,20 @@ def main(argv=None) -> int:
     return 0
 
 
-def _write_profile(profiler, path: str) -> None:
+def _write_profile(profiler, path: str, timers: StageTimers) -> None:
+    """The profiler's trace and, beside it, the tracer's records and
+    totals (the tracer is switched off here)."""
+    import json
+
+    timers.off()
     os.makedirs(path, exist_ok=True)
     profiler.export_chrome_trace(os.path.join(path, "trace.json"))
-    print(f"torch.profiler trace written to {path}/trace.json", file=sys.stderr)
+    with open(os.path.join(path, "tracer.json"), "w") as f:
+        json.dump({"frames": timers.frames(), "totals": timers.totals(),
+                   "spans": timers.profiler_spans(profiler)}, f)
+    print(f"torch.profiler trace written to {path}/trace.json, the tracer's records to {path}/tracer.json",
+          file=sys.stderr)
+    print(f"tracer totals: {timers.totals()}", file=sys.stderr)
 
 
 def _device_replay(args, eng, profiler) -> int:
@@ -308,7 +327,7 @@ def _device_replay(args, eng, profiler) -> int:
         rep = eng.replay_sequence(stacked)
         dt = time.perf_counter() - t0
     if profiler is not None:
-        _write_profile(profiler, args.profile)
+        _write_profile(profiler, args.profile, eng.timers)
     F = len(stacked["stamps"])
     print(f"device replay: {F} frames in {dt:.3f} s ({F / dt:.1f} frames/s, {1e3 * dt / F:.2f} ms/frame; "
           "the first replay includes the CUDA graph captures: re-run for steady-state timing)",

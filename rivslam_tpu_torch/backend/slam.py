@@ -22,11 +22,11 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch.profiler import record_function
 
 from rivslam_tpu_torch.core import lie
 from rivslam_tpu_torch.core.config import BackendConfig, ImuConfig
 from rivslam_tpu_torch.core.navstate import NavState
+from rivslam_tpu_torch.eval import timing
 from rivslam_tpu_torch.factors import infomat
 from rivslam_tpu_torch.factors import preintegration as pre
 from rivslam_tpu_torch.factors.preintegration import mv
@@ -159,7 +159,7 @@ def backend_step(state: BackendState, frame: BackendFrame, cfg: BackendConfig,
     # --- preintegrate with the last optimized biases (nodelet:347-372)
     last = [a[-1] for a in state.nav.astuple()]  # R, p, v, bg, ba
     imu = (frame.imu_dts, frame.imu_acc, frame.imu_gyr, frame.imu_mask, last[3], last[4])
-    with record_function("backend.preintegrate"):
+    with timing.span("backend.preintegrate"):
         if graphs is None:
             p_int = pre.preintegrate(*imu, imu_cfg.gyr_noise, imu_cfg.acc_noise)
         else:
@@ -180,7 +180,7 @@ def backend_step(state: BackendState, frame: BackendFrame, cfg: BackendConfig,
     # --- relative odometry measurement + fitness info for the new pair
     rel_R_new = frame.odom_R.T @ state.odom_R[-1]  # T_this^-1 T_prev (nodelet:418)
     rel_p_new = mv(frame.odom_R.T, state.odom_p[-1] - frame.odom_p)
-    with record_function("backend.information"):
+    with timing.span("backend.information"):
         rel_info_new = infomat.calc_information_matrix(
             frame.xyz, frame.mask, state.xyz[-1], state.cloud_mask[-1],
             lie.se3_matrix(rel_R_new, rel_p_new), cfg,
@@ -235,7 +235,7 @@ def backend_step(state: BackendState, frame: BackendFrame, cfg: BackendConfig,
         plane_info=torch.full((W,), 1.0 / FLOOR_EDGE_STDDEV, dtype=dtype, device=dev),
         plane_valid=st.floor_valid,
     )
-    with record_function("backend.window_solve"):
+    with timing.span("backend.window_solve"):
         if graphs is None:
             nav_opt, chi2, iters = win.solve_window(
                 st.nav, factors, cfg, bias_information(imu_cfg), use_schur=cfg.use_schur

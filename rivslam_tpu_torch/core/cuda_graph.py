@@ -22,6 +22,11 @@ known). torch no longer collects before a capture unless
 ``torch.compiler.config.force_cudagraph_gc`` is set, so a capture collects
 first and holds the collector off until it ends (``_no_gc``).
 
+With the tracer on (``eval/timing``) a capture is a ``graph.capture``
+span, counted under ``graph_captures`` and timed under
+``graph_capture_ms``, and each replay counts under ``graph_replays``, by
+the graph's name.
+
 ``LOCK`` makes a capture safe beside a second thread (the Engine's
 asynchronous loop worker). A capture takes it for its warm-up and capture,
 and the worker for each job: under the default capture mode any CUDA call
@@ -37,9 +42,11 @@ from __future__ import annotations
 import contextlib
 import gc
 import threading
+import time
 
 import torch
 
+from rivslam_tpu_torch.eval import timing
 from rivslam_tpu_torch.ops import cuda_build, nn_argmin, nn_corr, nn_gather
 
 # the wrappers whose ``launches`` a replay credits
@@ -94,8 +101,11 @@ class Graphed:
         self.inputs = inputs
         self.replays = 0
         dev = inputs[0].device
-        with LOCK:
+        with LOCK, timing.span(timing.CAPTURE_SPAN):
+            t0 = time.perf_counter()
             self._capture(fn, dev)
+            timing.count("graph_captures", name)
+            timing.count("graph_capture_ms", name, 1e3 * (time.perf_counter() - t0))
 
     def _capture(self, fn, dev) -> None:
         inputs, name = self.inputs, self.name
@@ -131,6 +141,7 @@ class Graphed:
     def replay(self):
         self.graph.replay()
         self.replays += 1
+        timing.count("graph_replays", self.name)
         for fn, n in self.launches.items():
             cuda_build.count_launch(fn, n)
         return self.outputs

@@ -20,6 +20,7 @@ import torch
 
 from rivslam_tpu_torch.core import cuda_graph, lie
 from rivslam_tpu_torch.core.navstate import GRAVITY, NavState
+from rivslam_tpu_torch.eval import timing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,8 +184,10 @@ class GraphedPreintegrate:
         if K not in self._graphs:
             self._graphs[K] = self._capture(K)
         graph = self._graphs[K]
-        graph.load(dts, acc, gyr, mask, bg, ba)
-        return Preintegration(*(t.clone() for t in graph.replay()))
+        with timing.span("preintegrate.load"):
+            graph.load(dts, acc, gyr, mask, bg, ba)
+        with timing.span("preintegrate.replay"):
+            return Preintegration(*(t.clone() for t in graph.replay()))
 
 
 def delta_rotation(p: Preintegration, bg: torch.Tensor) -> torch.Tensor:

@@ -50,6 +50,7 @@ from rivslam_tpu_torch.core.config import RegistrationConfig
 from rivslam_tpu_torch.core.device import resolve
 from rivslam_tpu_torch.core.pointcloud import SENTINEL
 from rivslam_tpu_torch.dist.mesh import all_sum
+from rivslam_tpu_torch.eval import timing
 from rivslam_tpu_torch.ops import eig3, knn, nn_corr
 
 _FAST_METHODS = ("FAST_APDGICP", "FAST_GICP", "GICP", "GICP_OMP")
@@ -224,12 +225,17 @@ def solve_lm(T0: torch.Tensor, cfg: RegistrationConfig, linearize_at, error_at, 
     over B problems, eagerly: ``lm_iteration`` up to ``cfg.max_iterations``
     times, reading one flag from the device after each (whether any problem
     is still active). Returns (T, H at the last accepted step, converged,
-    iterations)."""
-    carry = lm_init(T0, cfg)
-    for i in range(cfg.max_iterations):
-        carry = lm_iteration(carry, cfg, linearize_at, error_at, group)
-        if i + 1 < cfg.max_iterations and not bool(lm_active(carry, cfg).any()):
-            break
+    iterations). The outer iterations run count under the tracer's
+    ``lm_iterations``, by the span open around the call."""
+    with timing.span("apdgicp.solve_lm"):
+        carry = lm_init(T0, cfg)
+        run = 0
+        for i in range(cfg.max_iterations):
+            carry = lm_iteration(carry, cfg, linearize_at, error_at, group)
+            run += 1
+            if i + 1 < cfg.max_iterations and not bool(lm_active(carry, cfg).any()):
+                break
+    timing.count("lm_iterations", n=run)
     T, _, converged, _, it, Hf = carry
     return T, Hf, converged, it
 
@@ -324,10 +330,13 @@ class GraphedRegistration:
         iteration, final = self._graphs[key]
         iteration.load(*problem, *lm_init(T0, cfg))
         for i in range(cfg.max_iterations):
-            (active,) = iteration.replay()
+            with timing.span("registration.replay"):
+                (active,) = iteration.replay()
             if i + 1 < cfg.max_iterations:
                 self.reads += 1
-                if not bool(active):
+                with timing.span("registration.active_read"):
+                    still = bool(active)
+                if not still:
                     break
         out = final.replay()
         T, _, converged, _, it, Hf = iteration.inputs[len(problem):]
@@ -563,13 +572,14 @@ def prepare(xyz, mask, cfg: RegistrationConfig, device="cuda") -> PreparedCloud:
     mask = _as_tensor(mask, dev)
     if xyz.ndim == 2:
         return _map(prepare(xyz[None], mask[None], cfg, dev), lambda t: t[0])
-    if cfg.use_fast_path and cfg.regularization == "PLANE":
-        from rivslam_tpu_torch.frontend import apdgicp_fast
+    with timing.span("apdgicp.prepare"):
+        if cfg.use_fast_path and cfg.regularization == "PLANE":
+            from rivslam_tpu_torch.frontend import apdgicp_fast
 
-        if cfg.covariance_method == "RBF":
-            return apdgicp_fast.estimate_covariances_rbf_fast(xyz, mask, cfg)
-        return apdgicp_fast.estimate_covariances_fast(xyz, mask, cfg)
-    return estimate_covariances(xyz, mask, cfg)
+            if cfg.covariance_method == "RBF":
+                return apdgicp_fast.estimate_covariances_rbf_fast(xyz, mask, cfg)
+            return apdgicp_fast.estimate_covariances_fast(xyz, mask, cfg)
+        return estimate_covariances(xyz, mask, cfg)
 
 
 def register_dispatch(

@@ -22,9 +22,9 @@ re-prepares the submap on every frame and keeps it with ``where(is_kf,
 flag on the host and rebuilds the ring buffer and the submap on keyframes
 only, so a frame that is no keyframe does no S*N x S*N covariance prepare.
 
-The scan-to-map registration and the submap rebuild carry
-``torch.profiler.record_function`` scopes (``odometry.scan_to_map``,
-``odometry.submap``) inside the Engine's ``engine.odometry``.
+The scan-to-map registration and the submap rebuild are spans of the
+tracer (``eval/timing``: ``odometry.scan_to_map``, ``odometry.submap``)
+inside the Engine's ``engine.odometry``.
 """
 
 from __future__ import annotations
@@ -32,10 +32,10 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch.profiler import record_function
 
 from rivslam_tpu_torch.core import lie
 from rivslam_tpu_torch.core.config import OdometryConfig, RegistrationConfig
+from rivslam_tpu_torch.eval import timing
 from rivslam_tpu_torch.frontend import apdgicp, odometry
 
 
@@ -128,7 +128,7 @@ def step(
     egovel_trans = torch.where(too_big, base.egovel_trans, ego_delta)
     egovel_cum = lie.se3_matrix(torch.eye(3, dtype=dtype, device=dev), egovel_trans)
     guess = base.prev_trans @ egovel_cum if odo_cfg.use_ego_vel else base.prev_trans
-    with record_function("odometry.scan_to_map"):
+    with timing.span("odometry.scan_to_map"):
         reg_m = apdgicp.register_dispatch(source, state.target, guess, reg_cfg, device=dev, graphs=graphs)
     trans_m = torch.where(reg_m.converged, reg_m.T, state.prev_trans_s2m)
     odom_m = state.keyframe_pose_s2m @ trans_m
@@ -164,7 +164,7 @@ def step(
         kf_mask = _roll_in(state.kf_mask, source.mask)
         kf_pose = _roll_in(state.kf_pose, s2s_out.odom)
         kf_valid = _roll_in(state.kf_valid, True)
-        with record_function("odometry.submap"):
+        with timing.span("odometry.submap"):
             target = _build_submap(kf_xyz, kf_mask, kf_pose, kf_valid, s2s_out.odom, reg_cfg)
         kf_fields = (kf_xyz, kf_mask, kf_pose, kf_valid, target)
 

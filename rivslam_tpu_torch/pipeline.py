@@ -60,12 +60,21 @@ stream are marked with ``record_stream``; each job holds
 ``core/cuda_graph.LOCK``, which every graph capture takes too, and its
 kernel launches count as ``worker_launches``.
 
-The stages carry ``torch.profiler.record_function`` scopes
-(``engine.preprocess``, ``engine.odometry``, ``engine.backend``, with
-``backend.*`` inside; ``engine.keyframe``, ``engine.loop_detection``,
-``engine.global_solve``), which cost nothing without a profiler and give
-``profile_torch.py --engine`` its per-stage host times; ``timers`` keeps the
-reference's per-stage wall times.
+The stages are spans of the Engine's tracer, ``timers``
+(``eval/timing.StageTimers``; pass ``timers=`` to share one switched on
+before the Engine is built, so that its graph captures are traced too):
+each frame is one ``engine.process_frame`` with ``engine.merge_loops``,
+``engine.inputs``, ``engine.preprocess`` (``preprocess.draw``,
+``preprocess.reve``, ``preprocess.filters``, ``preprocess.floor``,
+``apdgicp.prepare``), ``engine.odometry``, ``engine.backend`` (``backend.*``
+inside), ``engine.outputs`` and, on keyframes, ``engine.keyframe``
+(``keyframe.insert``, ``engine.loop_detection``, ``engine.global_solve``).
+A span is a ``torch.profiler.record_function`` scope while a profiler
+records (``profile_torch.py --engine``'s per-stage host times); the
+``frame_step``, ``loop``, ``graph_opt``, ``graph_opt_async`` and
+``loop_detect_async`` samples are always kept; with ``timers.on()`` the
+tracer also keeps every span's record, each frame's per-stage host ms and
+its host syncs, graph captures and replays (``timers.frames()``).
 
 Randomness. REVE and the floor detector pick their RANSAC hypotheses from
 uniform scores (``frontend/reve.py``). The reference draws them from its
@@ -99,7 +108,6 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from rivslam_tpu_torch.backend import slam
 from rivslam_tpu_torch.core import cuda_graph, lie, prng
@@ -234,14 +242,14 @@ class Engine:
     per radar scan."""
 
     def __init__(self, cfg: EngineConfig = EngineConfig(), dtype=torch.float32, seed: int = 0,
-                 device="cuda", uniforms=None):
+                 device="cuda", uniforms=None, timers: StageTimers | None = None):
         self.cfg = cfg
         self.dtype = dtype
         self.device = resolve(device)
         self.key = prng.key(seed)  # the reference's key chain (core/prng.py)
         self._uniforms_fn = uniforms
         self.state = EngineState()
-        self.timers = StageTimers()
+        self.timers = StageTimers() if timers is None else timers
         # on the card the backend's fixed-shape pieces replay CUDA graphs;
         # the CPU runs them eagerly
         on_card = self.device.type == "cuda"
@@ -322,33 +330,37 @@ class Engine:
     def _preprocess(self, cloud: RadarCloud, ang_vel: torch.Tensor, prev_floor: torch.Tensor, draws):
         c = self.cfg
         p = c.preprocess
+        span = self.timers.span
         cl = filters.nan_filter(cloud)
         cl = filters.power_filter(cl, p.power_threshold)
-        ego = reve.estimate_ego_velocity(cl, c.reve, draws[0])
+        with span("preprocess.reve"):
+            ego = reve.estimate_ego_velocity(cl, c.reve, draws[0])
         # dynamic objects = RANSAC outliers (preprocessing_nodelet.cpp:766-774)
         dynamic_mask = cl.mask & ~ego.inlier_mask & ego.success
-        if p.enable_dynamic_object_removal:
-            cl = cl.and_mask(ego.inlier_mask | ~ego.success)
-        if p.enable_deskew:
-            cl = deskew.deskew(cl, ang_vel, scan_period=p.scan_period)
-        if p.use_distance_filter:
-            cl = filters.distance_filter(cl, p)
-        if p.downsample_method == "VOXELGRID":
-            cl = voxel.voxel_downsample(cl, p.downsample_resolution, cl.capacity)
-        if p.outlier_removal_method == "RADIUS":
-            cl = filters.radius_outlier_removal(cl, p.radius_radius, p.radius_min_neighbors)
-        elif p.outlier_removal_method == "STATISTICAL":
-            cl = filters.statistical_outlier_removal(cl, p.statistical_mean_k, p.statistical_stddev)
-        elif p.outlier_removal_method == "BILATERAL":
-            cl = filters.bilateral_filter(cl, p.bilateral_sigma_s, p.bilateral_sigma_r)
-        fl = floor.detect_floor(cl.xyz, cl.mask, c.floor, draws[1])
-        # floor fallback chain (floor_detection_nodelet.cpp:100-130):
-        # detected -> previous -> initial plane; under-floor removal clips
-        # the odometry input against it (+tolerance margin)
-        eff_floor = torch.where(fl.found, fl.coeffs, prev_floor)
-        if p.enable_under_floor_removal:
-            sd = cl.xyz @ eff_floor[:3] + eff_floor[3] + c.floor.floor_tolerance
-            cl = cl.and_mask(sd > 0)
+        with span("preprocess.filters"):
+            if p.enable_dynamic_object_removal:
+                cl = cl.and_mask(ego.inlier_mask | ~ego.success)
+            if p.enable_deskew:
+                cl = deskew.deskew(cl, ang_vel, scan_period=p.scan_period)
+            if p.use_distance_filter:
+                cl = filters.distance_filter(cl, p)
+            if p.downsample_method == "VOXELGRID":
+                cl = voxel.voxel_downsample(cl, p.downsample_resolution, cl.capacity)
+            if p.outlier_removal_method == "RADIUS":
+                cl = filters.radius_outlier_removal(cl, p.radius_radius, p.radius_min_neighbors)
+            elif p.outlier_removal_method == "STATISTICAL":
+                cl = filters.statistical_outlier_removal(cl, p.statistical_mean_k, p.statistical_stddev)
+            elif p.outlier_removal_method == "BILATERAL":
+                cl = filters.bilateral_filter(cl, p.bilateral_sigma_s, p.bilateral_sigma_r)
+        with span("preprocess.floor"):
+            fl = floor.detect_floor(cl.xyz, cl.mask, c.floor, draws[1])
+            # floor fallback chain (floor_detection_nodelet.cpp:100-130):
+            # detected -> previous -> initial plane; under-floor removal clips
+            # the odometry input against it (+tolerance margin)
+            eff_floor = torch.where(fl.found, fl.coeffs, prev_floor)
+            if p.enable_under_floor_removal:
+                sd = cl.xyz @ eff_floor[:3] + eff_floor[3] + c.floor.floor_tolerance
+                cl = cl.and_mask(sd > 0)
         prepared = apdgicp.prepare(cl.xyz, cl.mask, c.registration, device=self.device)
         return cl, ego, prepared, fl, dynamic_mask, eff_floor
 
@@ -360,9 +372,10 @@ class Engine:
         ``uniforms`` seam at this frame's index)."""
         c = self.cfg
         st = self.state
-        with record_function("engine.preprocess"):
+        with self.timers.span("engine.preprocess"):
             if draws is None:
-                reve_u, floor_u = self._draw_sequence([key], cloud.capacity, self._uniforms_fn, st.frame_idx)
+                with self.timers.span("preprocess.draw"):
+                    reve_u, floor_u = self._draw_sequence([key], cloud.capacity, self._uniforms_fn, st.frame_idx)
                 draws = (reve_u[0], floor_u[0])
             cl, ego, prepared, fl, dynamic_mask, st.floor_prev = self._preprocess(
                 cloud, ang_vel, st.floor_prev, draws
@@ -385,7 +398,7 @@ class Engine:
                 roll, pitch = odometry.roll_pitch_from_gravity(acc_mean)
                 imu_kw = dict(imu_roll=roll, imu_pitch=pitch, imu_valid=imu_mask.any())
             step = scan2map.step if c.odometry.enable_scan_to_map else odometry.step
-            with record_function("engine.odometry"):
+            with self.timers.span("engine.odometry"):
                 st.odo, oout = step(
                     st.odo, prepared, ego.v, stamp, c.odometry, c.registration, **imu_kw,
                     graphs=self.reg_graphs,
@@ -397,7 +410,7 @@ class Engine:
             imu_dts=imu_dts, imu_acc=imu_acc, imu_gyr=imu_gyr, imu_mask=imu_mask,
             floor=fl.coeffs, floor_valid=fl.found,
         )
-        with record_function("engine.backend"):
+        with self.timers.span("engine.backend"):
             st.backend, bout = slam.backend_step(st.backend, frame, c.backend, c.imu, self.graphs)
         return cl, ego, fl, dynamic_mask, oout, odom_pose, bout
 
@@ -408,57 +421,67 @@ class Engine:
         z prior); ``gps_utm`` an optional UTM fix [easting, northing, alt]
         paired to this frame, a translation prior on its keyframe. Returns
         the reference's output dict."""
+        st = self.state
+        with self.timers.frame(st.frame_idx):
+            return self._process_frame(cloud, stamp, imu_dts, imu_acc, imu_gyr, imu_mask, altitude,
+                                       gps_utm, gps_cov)
+
+    def _process_frame(self, cloud, stamp, imu_dts, imu_acc, imu_gyr, imu_mask, altitude, gps_utm,
+                       gps_cov) -> dict:
         c = self.cfg
         st = self.state
+        span = self.timers.span
         # merge the async worker's finished detections first, so that this
         # frame's keyframe chains onto the corrected graph
-        loop_applied = self._apply_pending_loops()
-        self.key, k1 = prng.split(self.key)  # every frame, frame 0 included
-        imu_acc, imu_gyr, imu_mask = np.asarray(imu_acc), np.asarray(imu_gyr), np.asarray(imu_mask)
-        if c.imu.apply_extrinsics:
-            # imuConverter parity (utility_radar.h:206-236)
-            ext = np.asarray(c.imu.ext_rot, dtype=np.float64).reshape(3, 3)
-            imu_acc = imu_acc @ ext.T
-            imu_gyr = imu_gyr @ ext.T
-        ang_vel = imu_gyr[np.argmax(imu_mask)] if imu_mask.any() else np.zeros(3)
-        if st.floor_prev is None:
-            # initial fallback plane (floor_detection_nodelet.cpp:122-127)
-            st.floor_prev = torch.tensor([0.0, 0.0, 1.0, 0.0], dtype=self.dtype, device=self.device)
-
-        def t(a, dtype=self.dtype):
-            return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
-
+        with span("engine.merge_loops"):
+            loop_applied = self._apply_pending_loops()
         with self.timers.time("frame_step"):
-            cl, ego, fl, dynamic_mask, oout, odom_pose, bout = self._frame_step(
-                cloud, t(ang_vel), t(stamp), t(imu_dts), t(imu_acc), t(imu_gyr),
-                t(imu_mask, torch.bool), key=k1,
-            )
-        if oout is None:
-            is_kf, reg_ok, status = True, True, None
-        else:
-            is_kf = bool(oout.is_keyframe)
-            reg_ok = bool(oout.reg.converged)
-            status = self._scan_matching_status(oout)
+            with span("engine.inputs"):
+                self.key, k1 = prng.split(self.key)  # every frame, frame 0 included
+                imu_acc, imu_gyr, imu_mask = np.asarray(imu_acc), np.asarray(imu_gyr), np.asarray(imu_mask)
+                if c.imu.apply_extrinsics:
+                    # imuConverter parity (utility_radar.h:206-236)
+                    ext = np.asarray(c.imu.ext_rot, dtype=np.float64).reshape(3, 3)
+                    imu_acc = imu_acc @ ext.T
+                    imu_gyr = imu_gyr @ ext.T
+                ang_vel = imu_gyr[np.argmax(imu_mask)] if imu_mask.any() else np.zeros(3)
+                if st.floor_prev is None:
+                    # initial fallback plane (floor_detection_nodelet.cpp:122-127)
+                    st.floor_prev = torch.tensor([0.0, 0.0, 1.0, 0.0], dtype=self.dtype, device=self.device)
+
+                def t(a, dtype=self.dtype):
+                    return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
+
+                inputs = (t(ang_vel), t(stamp), t(imu_dts), t(imu_acc), t(imu_gyr), t(imu_mask, torch.bool))
+            cl, ego, fl, dynamic_mask, oout, odom_pose, bout = self._frame_step(cloud, *inputs, key=k1)
+        with span("engine.outputs"):
+            if oout is None:
+                is_kf, reg_ok, status = True, True, None
+            else:
+                is_kf = bool(oout.is_keyframe)
+                reg_ok = bool(oout.reg.converged)
+                status = self._scan_matching_status(oout)
         loop_found = loop_applied
         if is_kf:
-            with self.timers.time("loop"):
+            with span("engine.keyframe", sample="loop"):
                 loop_found = self._on_keyframe(cl, odom_pose, stamp, altitude, gps_utm, gps_cov) or loop_found
         st.frame_idx += 1
-        pose = bout.pose.cpu().numpy()
-        st.trajectory.append((stamp, pose))
-        return {
-            "odom": odom_pose.cpu().numpy(),
-            "pose": pose,
-            "is_keyframe": is_kf,
-            "ego_velocity": ego.v.cpu().numpy(),
-            "floor": fl.coeffs.cpu().numpy() if bool(fl.found) else None,
-            "chi2": float(bout.chi2),
-            "loop_found": loop_found,
-            "registration_ok": reg_ok,
-            "dynamic_points": cloud.xyz.cpu().numpy()[dynamic_mask.cpu().numpy()],
-            # ScanMatchingStatus parity (msg/ScanMatchingStatus.msg)
-            "status": status,
-        }
+        with span("engine.outputs"):
+            pose = bout.pose.cpu().numpy()
+            st.trajectory.append((stamp, pose))
+            return {
+                "odom": odom_pose.cpu().numpy(),
+                "pose": pose,
+                "is_keyframe": is_kf,
+                "ego_velocity": ego.v.cpu().numpy(),
+                "floor": fl.coeffs.cpu().numpy() if bool(fl.found) else None,
+                "chi2": float(bout.chi2),
+                "loop_found": loop_found,
+                "registration_ok": reg_ok,
+                "dynamic_points": cloud.xyz.cpu().numpy()[dynamic_mask.cpu().numpy()],
+                # ScanMatchingStatus parity (msg/ScanMatchingStatus.msg)
+                "status": status,
+            }
 
     @staticmethod
     def _scan_matching_status(oout) -> dict:
@@ -616,7 +639,7 @@ class Engine:
         )
 
     def _solve_graph(self, g: global_graph.PoseGraph, timer: str = "graph_opt") -> global_graph.PoseGraph:
-        with record_function("engine.global_solve"), self.timers.time(timer):
+        with self.timers.span("engine.global_solve", sample=timer):
             if self.cfg.loop.global_solver == "SCHUR":
                 g, _ = block_schur.solve_pose_graph_schur(g, num_blocks=self.cfg.loop.schur_blocks)
             else:
@@ -635,7 +658,7 @@ class Engine:
         worker with loop.async_loop."""
         c = self.cfg
         st = self.state
-        with record_function("engine.keyframe"):
+        with self.timers.span("keyframe.insert"):
             k = self._insert_keyframe(cl, odom_pose, stamp, altitude, gps_utm, gps_cov)
         if k is None or not c.loop.enable or st.kf_count < c.loop.num_exclude_recent + 2:
             return False
@@ -653,7 +676,7 @@ class Engine:
         if c.loop.async_loop:
             self._submit_loop_job(snap)
             return False
-        with record_function("engine.loop_detection"):
+        with self.timers.span("engine.loop_detection"):
             det = self._run_loop_detection(snap)
         return det is not None and self._accept_loop(det)
 
@@ -917,7 +940,7 @@ class Engine:
         """One job on the worker thread: detection, then on acceptance the
         loop edge and the global solve on the snapshot's graph. Returns
         (det, solved (R, p) or None)."""
-        with self.timers.time("loop_detect_async"):
+        with self.timers.span("engine.loop_detection", sample="loop_detect_async"):
             det = self._run_loop_detection(snap)
         if det is None:
             return None, None

@@ -34,6 +34,7 @@ import torch
 
 from rivslam_tpu_torch.core import cuda_graph, lie
 from rivslam_tpu_torch.core.config import BackendConfig
+from rivslam_tpu_torch.eval import timing
 from rivslam_tpu_torch.factors import preintegration as pre
 from rivslam_tpu_torch.factors import residuals, robust
 
@@ -498,14 +499,19 @@ class GraphedSolver:
     def __call__(self, x0: WindowState, f: WindowFactors) -> tuple[WindowState, torch.Tensor, int]:
         if x0.window != self.window:
             raise ValueError(f"window of {x0.window} slots, but the graph was captured for {self.window}")
-        cache = whiten_cache(f, self.bias_info, self.window, x0.p.dtype)
-        self._iteration.load(*initial_carry(x0, self.cfg), *_factor_fields(f), *cache)
+        with timing.span("window_solve.load"):
+            cache = whiten_cache(f, self.bias_info, self.window, x0.p.dtype)
+            self._iteration.load(*initial_carry(x0, self.cfg), *_factor_fields(f), *cache)
         done = self._carry[-1]
         it = 0
         while it < self.cfg.max_solver_iterations:
-            self._iteration.replay()
+            with timing.span("window_solve.replay"):
+                self._iteration.replay()
             it += 1
-            if bool(done):  # one host read per outer iteration
+            with timing.span("window_solve.done_read"):
+                finished = bool(done)  # one host read per outer iteration
+            if finished:
                 break
-        (chi2,) = self._chi2.replay()
-        return WindowState(*(t.clone() for t in self._carry[:5])), chi2.clone(), it
+        with timing.span("window_solve.chi2"):
+            (chi2,) = self._chi2.replay()
+            return WindowState(*(t.clone() for t in self._carry[:5])), chi2.clone(), it
