@@ -11,9 +11,10 @@ Phases, each announced by a flushed "== phase" line:
               jax.random's values at a few places (GOLDEN_DRAWS); the host
               and card time of one frame's draw, eager, beside the
               torch.Generator draw it replaced;
-  2. build    K1 (csrc/nn_gather.cu), K2 (csrc/nn_corr.cu) and K3
-              (csrc/nn_argmin.cu), one nvcc each, started together; wall
-              times, ptxas reports, and each scan loop's instructions per
+  2. build    K1 (csrc/nn_gather.cu), K2 (csrc/nn_corr.cu), K3
+              (csrc/nn_argmin.cu) and the window solve (csrc/window_lm.cu),
+              one nvcc each, started together; wall times, ptxas reports,
+              and each nearest-neighbour scan loop's instructions per
               (query, target) pair from cuobjdump -sass;
   3. data     bench.py's protocol: B=256 frame pairs, capacity N=M=1024,
               from the port's numpy copy of the simulator;
@@ -48,9 +49,11 @@ Phases, each announced by a flushed "== phase" line:
               backend's own (uncorrected) ATE, each held to 1.5x the JAX
               engine's for the same seed; keyframes, loops closed,
               loop_stats, per-frame latency, peak memory, K1/K2/K3 launches
-              (counted through the graph replays), the CUDA graph replays
-              (preintegration, window solve, registration) and the
-              registration's host reads; each run's per-frame position gap
+              (counted through the graph replays) and the window kernel's
+              (one a frame, checked in phase 9), the CUDA graph replays
+              (preintegration, registration), the window kernel's launches,
+              outer iterations and lambda tries, and the registration's
+              host reads; each run's per-frame position gap
               to the JAX engine's run of the same seed and configuration
               (JAX_RUNS: median, largest, the first frame past 1 cm, the
               first keyframe decision that differs, loops beside JAX's),
@@ -76,6 +79,17 @@ Phases, each announced by a flushed "== phase" line:
               engine's inputs at every split S, beside the floor (an empty
               kernel on the same clustered grid), in a CUDA graph; K1 at the
               scan-to-map shape (B=1, N=1024, M=5120) in a CUDA graph;
+ 12b. window  the window solve of phase 9's seed-0 run: its launches (one
+              a frame), outer iterations and lambda tries a solve; on the
+              run's newest window (rebuilt from the backend states before
+              and after its last frame, held to the kernel's bitwise) the
+              kernel's ms a launch (CUDA events), a whole solve's host ms
+              (launch and read), the plain twin's on the card, the bound
+              (the operations of the factorizations and solves it ran, and
+              the floor of one host-launched empty kernel and one host
+              read), and the gap to the twin on the CPU, held to the card
+              tests' limits (tests/torch_window_problem.twin_limits: three
+              times the twin's own spread on the window, or WINDOW_TOL);
  13. engine   the 260-frame "garden" validation course under its
      garden   configuration (validation.build_course_cfg("garden"), K1 on:
               the garden preset, scan-to-map odometry, without deskew or
@@ -131,7 +145,8 @@ Any failed check raises, and the script then exits non-zero without a
 result. The line before the last is a JSON object listing the kernels, each
 at the engine's shape (B=1) and at B=256, and K1 at the scan-to-map shape,
 with their launches in the replay (phase 16; K2's in the exact replay; K1 at
-the scan-to-map shape in the garden course run); the last line is
+the scan-to-map shape in the garden course run), and the window solve at
+the engine's window (its launches in phase 9's seed-0 run); the last line is
 {"ok": true, "device": {...}}. It needs a CUDA device and the
 repository beside it: there is no CPU fallback.
 """
@@ -256,6 +271,7 @@ GARDEN_HEAD = 12  # phase 4's garden frames, for a submap of several keyframes
 CLI_FRAMES = 16  # phase 15's course, and phase 19's
 SYNC_FRAMES = 20  # phase 16: the frames whose host syncs are counted
 FLEET_FRAMES = 40  # phase 17: the length of each fleet sequence
+F32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
 FRAME_INTERVAL_MS = 250.0  # the radar's frame interval
 CPU_FRAMES = 8
 # card vs CPU on the first frames: float32 rounding of the isolated points'
@@ -802,6 +818,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.append(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
     import rivslam_tpu_torch
     from rivslam_tpu_torch.core.config import RegistrationConfig
     from rivslam_tpu_torch.core.pointcloud import SENTINEL
@@ -810,10 +827,15 @@ def main() -> None:
     from rivslam_tpu_torch.core import lie
     from rivslam_tpu_torch.eval import ate
     from rivslam_tpu_torch.io import datasets, synthetic
+    from rivslam_tpu_torch.backend import slam
+    from rivslam_tpu_torch.core.navstate import NavState
+    from rivslam_tpu_torch.factors import preintegration as pre
     from rivslam_tpu_torch.ops import cuda_build, nn_argmin, nn_corr, nn_gather
+    from rivslam_tpu_torch.solver import window
+    from torch_window_problem import twin_limits  # the card tests' limits, kernel against twin
 
     dev = torch.device("cuda")
-    counted = {"K1": nn_gather.fused_gather, "K2": nn_corr.fused_correspondence,
+    counted = {"K1": nn_gather.fused_gather, "K2": nn_corr.fused_correspondence, "window": window.solve_batched,
                "K3": nn_argmin.nearest_neighbor}
 
     def zero_counts():
@@ -904,14 +926,16 @@ def main() -> None:
     phase("2 build")
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, started together
-        builds = {name: pool.submit(mod.build)
-                  for name, mod in (("K1", nn_gather), ("K2", nn_corr), ("K3", nn_argmin))}
+    with ThreadPoolExecutor(4) as pool:  # one nvcc per source, started together
+        builds = {name: pool.submit(mod.build) for name, mod in (
+            ("K1", nn_gather), ("K2", nn_corr), ("K3", nn_argmin), ("window solve", window))}
         builds = {name: fut.result() for name, fut in builds.items()}
     for name, built in builds.items():
         say(f"{name}: nvcc built {os.path.relpath(built.path)} in {built.seconds:.2f} s")
         for ln in built.ptxas:
             say(f"  {ln}")
+        if name == "window solve":
+            continue
         loops = sass_scan_loops(built.path)
         if loops is None:
             say(f"{name}: no cuobjdump in this toolkit; scan loops not read")
@@ -1124,11 +1148,12 @@ def main() -> None:
         by default), the launch counts zeroed just before and read just
         after; with ``hold``, checks the ATE, corrected and not, against the
         JAX engine's for the same seed. ``after_frame(eng)`` runs after each
-        frame (a drain of the loop worker). The Engine captures the window
-        solve's CUDA graphs at construction, before the counts are zeroed;
-        the preintegration's and the registration's on the first frames (a
-        capture leaves the launch counts as it found them, and each replay
-        adds its captured launches)."""
+        frame (a drain of the loop worker). The Engine captures the
+        preintegration's and the registration's CUDA graphs on the first
+        frames (a capture leaves the launch counts as it found them, and
+        each replay adds its captured launches); the window solve is one
+        kernel launch a frame, its outer iterations and lambda tries
+        counted by the Engine's solver."""
         seq_, gt_ = course if course is not None else (seq, gt)
         n_frames = seq_.num_frames
         eng = pipeline.Engine(cfg, seed=seed, device=dev)
@@ -1136,6 +1161,7 @@ def main() -> None:
 
         def graph_counts():
             return {"preintegrate": graphs.preintegrate.replays, "window solve": graphs.solve.replays,
+                    "window iterations": graphs.solve.iterations, "window tries": graphs.solve.tries,
                     "registration": reg.replays, "registration host reads": reg.reads}
 
         replays0 = graph_counts()
@@ -1185,8 +1211,8 @@ def main() -> None:
         say(f"engine {key}: loop_stats {json.dumps(eng.loop_stats)}; sha256 of the corrected and "
             f"uncorrected trajectories {digest.hexdigest()[:16]} (equal digests: bitwise equal runs)")
         say(f"engine {key}: launches, counted through the graph replays {n} (per frame: "
-            f"{ {k: round(v / n_frames, 3) for k, v in n.items()} }); CUDA graph replays and the "
-            f"registration's host reads {replays} (per frame: "
+            f"{ {k: round(v / n_frames, 3) for k, v in n.items()} }); CUDA graph replays, the window "
+            f"kernel's launches, iterations and tries, and the registration's host reads {replays} (per frame: "
             f"{ {k: round(v / n_frames, 3) for k, v in replays.items()} })")
         for name, v in (("wall clock", wall_ms), ("CUDA events", ev_ms)):
             say(f"engine {key}: per-frame latency by {name} over frames 1..{n_frames - 1}: median "
@@ -1220,11 +1246,18 @@ def main() -> None:
 
     phase("9 engine: the cp preset as shipped, loop closure on, engine seeds "
           + ", ".join(map(str, ENGINE_SEEDS)))
-    seeds = {}
+    seeds, held = {}, []
+
+    def hold_backend(e):  # the window backend after each frame (backend_step builds new tensors)
+        held[:] = held[-1:] + [e.state.backend]
+
     for seed in ENGINE_SEEDS:
-        e, o, counts, seeds[seed] = drive_engine("preset", preset_cfg(presets), seed)
+        e, o, counts, seeds[seed] = drive_engine("preset", preset_cfg(presets), seed,
+                                                 after_frame=hold_backend if seed == ENGINE_SEED else None)
         check(e.loop_stats["accepted"] >= 1, f"engine preset seed {seed}: no loop closed")
         check(counts["K1"] > 0 and counts["K3"] > 0, f"engine preset seed {seed}: K1 or K3 never launched")
+        check(counts["window"] == n_frames,
+              f"engine preset seed {seed}: {counts['window']} window kernel launches over {n_frames} frames")
         if seed == ENGINE_SEED:
             eng, outs, eng_counts = e, o, counts
     # the frame's draw as the Engine issues it on the card: one CUDA graph replay a frame
@@ -1415,6 +1448,84 @@ def main() -> None:
     say(f"launches per frame: preset engine K1 {eng_counts['K1'] / n_frames:.3f}, K3 "
         f"{eng_counts['K3'] / n_frames:.3f}; exact engine K2 {exact_counts['K2'] / n_frames:.3f}, "
         f"K3 {exact_counts['K3'] / n_frames:.3f}")
+    phase("12b the window solve: csrc/window_lm.cu on the newest window of phase 9's run, beside its twin "
+          "and its floor")
+
+    def on(obj, where):
+        return type(obj)(**{fl.name: on(getattr(obj, fl.name), where) if dataclasses.is_dataclass(getattr(obj, fl.name))
+                            else getattr(obj, fl.name).to(where) for fl in dataclasses.fields(obj)})
+
+    def factor_flops(W):  # one damped solve: the banded Cholesky and the two triangular solves
+        N, fl = 15 * W, 0
+        for j in range(N):
+            m = min(N - 1, 15 * (j // 15 + 2) - 1) - j  # rows below j reaching column j
+            fl += 1 + m + m * (m + 1) + 2 * (2 * m + 1)
+        return fl
+
+    # the window that the run's last backend_step handed its solver, rebuilt from the backend
+    # state before that frame and after it: backend_step rolls the window, puts the IMU
+    # prediction from the optimized navstate before it in the new slot, and builds the factors
+    # from the rolled state (slam.window_factors), of which the solve changes only ``nav``
+    before, after = held
+    bk, bias = eng.cfg.backend, slam.bias_information(eng.cfg.imu)
+    p_int = pre.Preintegration(*(a[-1] for a in after.preint.astuple()))
+    pred = pre.predict(NavState(before.stamps[-1], *(a[-1] for a in before.nav.astuple())), p_int,
+                       eng.cfg.imu.gravity)
+    x0 = window.WindowState(*(torch.cat([a[1:], b[None]]) for a, b in
+                              zip(before.nav.astuple(), (pred.R, pred.p, pred.v, pred.bg, pred.ba))))
+    f = slam.window_factors(dataclasses.replace(after, nav=x0))
+    params = window._params(bk, bias, torch.float32)
+    xb, fb = window._lead1(x0), window._lead1(f)
+    xk, chi2_k, counts = window.solve_batched(xb, fb, bk, bias, params)
+    it, tries = counts[0].tolist()
+    check(torch.equal(xk.R[0], after.nav.R), "window solve: the rebuilt window is not the one the Engine solved")
+    # against the twin on the CPU, within the limits of the card tests (twin_limits: three
+    # times the twin's own spread on this window, or WINDOW_TOL, whichever is larger)
+    x_cpu, f_cpu = on(x0, "cpu"), on(f, "cpu")
+    xt, chi2_t, it_t, tries_t = window.solve_window(x_cpu, f_cpu, bk, bias)
+    win_err = max(float((a[0].cpu() - b).abs().max()) for a, b in zip(xk.astuple(), xt.astuple()))
+    chi2_gap = abs(float(chi2_k[0]) - float(chi2_t)) / max(abs(float(chi2_t)), 1e-30)
+    tol_x, tol_c = twin_limits(x_cpu, f_cpu, bk, bias)
+    win_ms = time_ms(lambda: window.solve_batched(xb, fb, bk, bias, params), reps=200, warmup=3)
+
+    def host_ms(fn, reps):
+        got = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            got.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(got))
+
+    solve_ms = host_ms(lambda: window.solve(x0, f, bk, bias), 50)
+    twin_ms = host_ms(lambda: window.solve_window(x0, f, bk, bias), 5)
+    one = torch.zeros(1, device=dev)
+
+    def empty_and_read():
+        cuda_build.launch(floor_lib.rivslam_nn_empty, dev, 1, CAPACITY, 1)
+        return one.item()
+
+    floor_ms = host_ms(empty_and_read, 50)
+    flops = tries * factor_flops(x0.window)
+    ops_ms = 1e3 * flops / F32_FLOPS
+    window_t = {"ms": win_ms, "plain_ms": twin_ms, "bound_ms": max(ops_ms, floor_ms),
+                "bound_by": "launch and read" if floor_ms >= ops_ms else "operations", "host_ms": solve_ms}
+    solver = eng.graphs.solve
+    say(f"window solve over phase 9's {n_frames} frames (seed {ENGINE_SEED}): {eng_counts['window']} launches; "
+        f"outer iterations {solver.iterations / solver.replays:.3f} and lambda tries "
+        f"{solver.tries / solver.replays:.3f} a solve")
+    say(f"window solve on its newest window (W={x0.window}, {it} iterations, {tries} tries; the twin on the CPU: "
+        f"{it_t}, {tries_t}): kernel {win_ms:.4f} ms/launch (CUDA events, host-launched back to back); a whole "
+        f"solve, launch and read, {solve_ms:.4f} ms (host, median of 50); the plain twin on the card "
+        f"{twin_ms:.3f} ms (median of 5); bound {window_t['bound_ms']:.4f} ms ({window_t['bound_by']}: its "
+        f"factorizations and solves {flops:.3e} flop = {ops_ms:.6f} ms at {F32_FLOPS:.3g} flop/s; an empty "
+        f"kernel launched and one host read {floor_ms:.4f} ms); against the twin on the CPU: state "
+        f"{win_err:.3e} (limit {tol_x:.3e}), chi2 {chi2_gap:.3e} relative (limit {tol_c:.3e}) {card}")
+    check((it, tries) == (it_t, tries_t), "the window kernel's iterations or tries differ from its twin's")
+    check(win_err <= tol_x and chi2_gap <= tol_c,
+          f"the window kernel is off its twin: state {win_err} > {tol_x} or chi2 {chi2_gap} > {tol_c}")
+
     def latency(stats):
         w = stats["wall_ms"]
         return (f"median {np.median(w):.3f} ms, p95 {np.percentile(w, 95):.3f} ms, max {w.max():.3f} ms, "
@@ -1736,6 +1847,8 @@ def main() -> None:
         {"name": "K1 fused_gather (scan-to-map B=1, M=5120)", "route": "cuda",
          "source": "rivslam_tpu_torch/csrc/nn_gather.cu", "replaces": "rivslam_tpu/ops/pallas_nn.py:179",
          "launches": s2m_launches, "max_abs_err": k1_s2m_err, **k1_s2m_t},
+        {"name": "window solve (engine W=6)", "route": "cuda", "source": "rivslam_tpu_torch/csrc/window_lm.cu",
+         "replaces": None, "launches": eng_counts["window"], "max_abs_err": win_err, **window_t},
     ]
     say(smi)
     say(json.dumps({"kernels": kernels}))

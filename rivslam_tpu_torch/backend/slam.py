@@ -6,11 +6,12 @@ rebuilt and re-optimized each frame; failure detection resets
 biases/velocity (:489-522, 1351-1371). ``backend_step`` rolls the window,
 preintegrates the frame's IMU batch, takes the new odometry edge's
 information from the registration fitness (K3 inside
-``factors/infomat``), rebuilds the factors and runs the window LM. On the
-card the Engine hands it ``BackendGraphs``: the preintegration and the
-window solve's outer iteration then replay CUDA graphs (the solve's
-captured at Engine construction, the preintegration's for each IMU buffer
-length on its first frame), and the CPU runs the same functions eagerly.
+``factors/infomat``), rebuilds the factors and runs the window LM: on the
+card one launch of the window kernel (``csrc/window_lm.cu``), on the CPU
+its plain twin. On the card the Engine hands it ``BackendGraphs``: the
+preintegration then replays a CUDA graph (captured for each IMU buffer
+length on its first frame) and the window solve counts its launches; the
+CPU runs the same functions eagerly.
 Reference quirks kept: initial biases set to the noise densities with
 bg/ba swapped (:180-186), the ego velocity rotated by the PRE-optimize
 attitude each rebuild (:432), the previous frame's floor coefficients as
@@ -130,17 +131,15 @@ def bias_information(imu_cfg: ImuConfig) -> tuple[float, float]:
 
 
 class BackendGraphs:
-    """The backend's fixed-shape pieces as CUDA graphs (card only): the
-    window solve for ``cfg.window_size`` slots, ``dtype`` and
-    ``cfg.use_schur``, captured here, and the IMU preintegration, captured
-    for each buffer length the first time it comes. A capture failure
-    raises."""
+    """The backend's fixed-shape pieces on the card: the IMU
+    preintegration as CUDA graphs, captured for each buffer length the
+    first time it comes (a capture failure raises), and the window solve,
+    one kernel launch a frame (``solver/window.FusedSolver``; nothing is
+    captured for it)."""
 
     def __init__(self, cfg: BackendConfig, imu_cfg: ImuConfig, dtype, device):
         self.preintegrate = pre.GraphedPreintegrate(imu_cfg.gyr_noise, imu_cfg.acc_noise, dtype, device)
-        self.solve = win.GraphedSolver(
-            cfg, bias_information(imu_cfg), cfg.window_size, dtype, device, cfg.use_schur
-        )
+        self.solve = win.FusedSolver(cfg, bias_information(imu_cfg), dtype)
 
 
 def _push(a: torch.Tensor, new) -> torch.Tensor:
@@ -148,12 +147,36 @@ def _push(a: torch.Tensor, new) -> torch.Tensor:
     return torch.cat([a[1:], torch.as_tensor(new, dtype=a.dtype, device=a.device)[None]])
 
 
+def window_factors(st: BackendState) -> win.WindowFactors:
+    """The factors of a rolled window, before its solve (nodelet:389-462):
+    the velocity measurement is rotated by the pre-optimize attitude (the
+    reference's quirk)."""
+    vel_meas_world = torch.einsum("wij,wj->wi", st.nav.R, st.ego_vel)
+    return win.WindowFactors(
+        frame_mask=st.frame_mask,
+        rel_R=st.rel_R,
+        rel_p=st.rel_p,
+        rel_info=st.rel_info,
+        prior_R=st.odom_R,
+        prior_p=st.odom_p,
+        prior_info=st.rel_info,  # same info for EdgePose (nodelet:422-424)
+        preint=st.preint,
+        preint_info=st.preint_info,
+        vel_meas=vel_meas_world,
+        vel_info=st.vel_info,
+        plane_node=torch.roll(st.floor, 1, dims=0),  # previous frame's coeffs as node
+        plane_meas=st.floor,
+        plane_info=torch.full(st.floor_valid.shape, 1.0 / FLOOR_EDGE_STDDEV, dtype=st.odom_p.dtype,
+                              device=st.odom_p.device),
+        plane_valid=st.floor_valid,
+    )
+
+
 def backend_step(state: BackendState, frame: BackendFrame, cfg: BackendConfig,
                  imu_cfg: ImuConfig, graphs: BackendGraphs | None = None,
                  ) -> tuple[BackendState, BackendOutput]:
     dtype = state.odom_p.dtype
     dev = state.odom_p.device
-    W = cfg.window_size
     is_first = ~torch.any(state.frame_mask)
 
     # --- preintegrate with the last optimized biases (nodelet:347-372)
@@ -216,32 +239,12 @@ def backend_step(state: BackendState, frame: BackendFrame, cfg: BackendConfig,
         trans_aftmapped=state.trans_aftmapped,
     )
 
-    # --- build the factors (nodelet:389-462)
-    vel_meas_world = torch.einsum("wij,wj->wi", st.nav.R, st.ego_vel)  # pre-opt R (quirk)
-    factors = win.WindowFactors(
-        frame_mask=st.frame_mask,
-        rel_R=st.rel_R,
-        rel_p=st.rel_p,
-        rel_info=st.rel_info,
-        prior_R=st.odom_R,
-        prior_p=st.odom_p,
-        prior_info=st.rel_info,  # same info for EdgePose (nodelet:422-424)
-        preint=st.preint,
-        preint_info=st.preint_info,
-        vel_meas=vel_meas_world,
-        vel_info=st.vel_info,
-        plane_node=torch.roll(st.floor, 1, dims=0),  # previous frame's coeffs as node
-        plane_meas=st.floor,
-        plane_info=torch.full((W,), 1.0 / FLOOR_EDGE_STDDEV, dtype=dtype, device=dev),
-        plane_valid=st.floor_valid,
-    )
+    factors = window_factors(st)
     with timing.span("backend.window_solve"):
         if graphs is None:
-            nav_opt, chi2, iters = win.solve_window(
-                st.nav, factors, cfg, bias_information(imu_cfg), use_schur=cfg.use_schur
-            )
+            nav_opt, chi2, iters, _ = win.solve(st.nav, factors, cfg, bias_information(imu_cfg), cfg.use_schur)
         else:
-            nav_opt, chi2, iters = graphs.solve(st.nav, factors)
+            nav_opt, chi2, iters, _ = graphs.solve(st.nav, factors)
 
     # --- failure detection + resets (nodelet:489-522, 1351-1371)
     bad = (
@@ -252,7 +255,7 @@ def backend_step(state: BackendState, frame: BackendFrame, cfg: BackendConfig,
     nav_fixed = win.WindowState(
         R=nav_opt.R,
         p=torch.where(bad, st.odom_p, nav_opt.p),
-        v=torch.where(bad, vel_meas_world, nav_opt.v),
+        v=torch.where(bad, factors.vel_meas, nav_opt.v),
         bg=torch.where(bad, b_g_in, nav_opt.bg),
         ba=torch.where(bad, b_a_in, nav_opt.ba),
     )

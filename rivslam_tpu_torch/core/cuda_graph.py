@@ -7,7 +7,10 @@ graph's static input tensors and replays it, with no host work per kernel.
 The CPU runs the same functions eagerly (the tests do), so a graph replays
 exactly what the CPU path computes.
 
-A capture that fails raises: there is no eager fallback on the card.
+A capture that fails raises: there is no eager fallback on the card. It
+first takes torch's CUDA generator out of capture mode, where a capture
+that fails before it ends leaves it (``_end_generator_capture``), so a
+caller that carries on draws on the card as before.
 
 The kernel wrappers (K1-K3) count their launches on the host, so a launch
 inside a graph is counted per replay: the launches a piece made while it
@@ -16,9 +19,9 @@ was captured are credited to each wrapper at every replay, and the set-up
 
 Nor may a capture meet Python's cycle collector: on the card, freeing
 dead reference cycles in the middle of a capture was seen to invalidate it
-(the window solve's capture at Engine construction, after earlier Engines
-and failed captures had become garbage; which freed object does it is not
-known). torch no longer collects before a capture unless
+(a capture at Engine construction, after earlier Engines and failed
+captures had become garbage; which freed object does it is not known).
+torch no longer collects before a capture unless
 ``torch.compiler.config.force_cudagraph_gc`` is set, so a capture collects
 first and holds the collector off until it ends (``_no_gc``).
 
@@ -82,6 +85,18 @@ def _no_gc():
             gc.enable()
 
 
+def _end_generator_capture(dev) -> None:
+    """Take torch's CUDA generator out of the capture mode that a capture
+    which failed before it ended leaves it in (its epilogue runs only when a
+    capture ends cleanly; until then ``torch.randn`` on the card raises
+    "Offset increment outside graph capture"): a capture of one small
+    kernel begins and ends it."""
+    t = torch.zeros(1, device=dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(dev), _no_gc(), torch.cuda.graph(graph):
+        t.add_(1.0)
+
+
 class Graphed:
     """``fn(*inputs)`` captured as one CUDA graph over the given static input
     tensors (kept as they are, so several graphs may share them).
@@ -126,6 +141,7 @@ class Graphed:
                     self.outputs = fn(*inputs)
                 captured = [fn_.launches - w for fn_, w in zip(COUNTED, warm)]
         except Exception as e:
+            _end_generator_capture(dev)
             raise RuntimeError(f"CUDA graph capture of {name} failed: {e}") from e
         finally:
             for fn_, n in zip(COUNTED, counts):

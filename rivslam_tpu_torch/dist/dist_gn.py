@@ -90,11 +90,10 @@ def batched_window_solve(
     axis: str = "data",
 ) -> tuple[win.WindowState, torch.Tensor, torch.Tensor]:
     """Solve B independent sliding windows (every field with a leading [B]),
-    B split over ``axis``. The port's ``solve_window`` solves one window, so
-    each rank solves its windows one after another: on the card through one
-    ``GraphedSolver``, captured for the first and replayed for every other
-    window of the slice; on the CPU eagerly. Returns (states, chi2 [B],
-    iterations [B]), gathered."""
+    B split over ``axis``. On the card each rank solves its windows in one
+    launch of the window kernel (a thread block per window); on the CPU one
+    after another through the kernel's plain twin. Returns (states, chi2
+    [B], iterations [B]), gathered."""
     def cut(obj):
         return type(obj)(**{k: cut(v) if dataclasses.is_dataclass(v) else local_slice(v, mesh, axis)
                             for k, v in _fields(obj).items()})
@@ -105,13 +104,14 @@ def batched_window_solve(
 
     x_loc, f_loc = cut(states), cut(factors)
     n, dev = x_loc.p.shape[0], x_loc.p.device
-    solve = (win.GraphedSolver(cfg, tuple(bias_info), x_loc.p.shape[1], x_loc.p.dtype, dev)
-             if dev.type == "cuda" else
-             lambda x, f: win.solve_window(x, f, cfg, tuple(bias_info)))
-    outs = [solve(pick(x_loc, i), pick(f_loc, i)) for i in range(n)]
-    x = win.WindowState(*(torch.stack(ts) for ts in zip(*(o[0].astuple() for o in outs))))
-    chi2 = torch.stack([o[1] for o in outs])
-    iters = torch.tensor([o[2] for o in outs], dtype=torch.int32, device=dev)
+    if dev.type == "cuda":
+        x, chi2, counts = win.solve_batched(x_loc, f_loc, cfg, tuple(bias_info))
+        iters = counts[:, 0].contiguous()
+    else:
+        outs = [win.solve_window(pick(x_loc, i), pick(f_loc, i), cfg, tuple(bias_info)) for i in range(n)]
+        x = win.WindowState(*(torch.stack(ts) for ts in zip(*(o[0].astuple() for o in outs))))
+        chi2 = torch.stack([o[1] for o in outs])
+        iters = torch.tensor([o[2] for o in outs], dtype=torch.int32, device=dev)
     return (win.WindowState(*(gather(t, mesh, axis) for t in x.astuple())),
             gather(chi2, mesh, axis), gather(iters, mesh, axis))
 

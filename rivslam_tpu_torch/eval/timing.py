@@ -37,8 +37,10 @@ debug mode it sets is process-wide), the tracer keeps:
   and not shown; ``graph_captures``, ``graph_capture_ms`` (host ms of
   warm-up and capture, which run inside a ``graph.capture`` span) and
   ``graph_replays``, by CUDA graph (``core/cuda_graph.Graphed``);
-  ``lm_iterations``, the eager LM's outer iterations
-  (``apdgicp.solve_lm``), by the span open around the call.
+  ``lm_iterations``, outer iterations of the eager LM
+  (``apdgicp.solve_lm``) and of the window solve (``solver/window.solve``),
+  and ``lm_tries``, the window solve's lambda tries, by the span open
+  around the call.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ from torch.profiler import record_function
 
 SYNC_WARNING = "called a synchronizing CUDA operation"  # torch's sync debug warning
 OUTSIDE = "(outside any span)"  # a counter's key where no span is open
-COUNTERS = ("host_syncs", "graph_captures", "graph_capture_ms", "graph_replays", "lm_iterations")
+COUNTERS = ("host_syncs", "graph_captures", "graph_capture_ms", "graph_replays", "lm_iterations", "lm_tries")
 FRAME_SPAN = "engine.process_frame"
 CAPTURE_SPAN = "graph.capture"
 # records kept while on, the oldest dropped first: about two hours of the
@@ -311,8 +313,8 @@ class StageTimers:
         """Markdown: each span's host ms, calls and host syncs (counted
         under the innermost span) a frame; the ``top`` rows, the frame's
         top-level spans and the time outside them, add up to the frame.
-        Then the graph captures, replays and LM iterations of those
-        frames."""
+        Then the graph captures, replays, LM iterations and lambda tries of
+        those frames."""
         frames = self.frames() if frames is None else frames
         if not frames:
             return ""
@@ -343,14 +345,15 @@ class StageTimers:
         rows.append(f"| (outside the top-level spans) | top | {np.mean([f['unspanned_ms'] for f in frames]):.3f} "
                     f"| | {syncs.get(FRAME_SPAN, 0) / n:.2f} |")
         caps, cap_ms = counter("graph_captures"), counter("graph_capture_ms")
-        replays, lm = counter("graph_replays"), counter("lm_iterations")
+        replays, lm, tries = counter("graph_replays"), counter("lm_iterations"), counter("lm_tries")
         lines = [
             "",
             f"graph captures in these frames: {sum(caps.values())}"
             + (f" ({', '.join(f'{k}: {v}, {cap_ms[k]:.1f} ms' for k, v in sorted(caps.items()))})" if caps else ""),
             f"graph replays a frame: {sum(replays.values()) / n:.2f}",
-            f"eager LM iterations a frame: {sum(lm.values()) / n:.2f}"
+            f"LM iterations a frame: {sum(lm.values()) / n:.2f}"
             + (f" ({', '.join(f'{k}: {v / n:.2f}' for k, v in sorted(lm.items()))})" if lm else ""),
+            f"window-solve lambda tries a frame: {sum(tries.values()) / n:.2f}",
         ]
         return "\n".join(rows + lines)
 

@@ -19,13 +19,13 @@ floor detection with its fallback chain and under-floor removal, covariance
 prepare, ``odometry.step`` (K1 inside the fast registration when
 ``use_pallas_correspondence`` is on, K2 inside the exact one) and
 ``slam.backend_step`` (K3 inside the edge-information fitness). On the card
-every stage runs on the device; the backend's window solve replays CUDA
-graphs captured at construction, its IMU preintegration one captured for
-each buffer length on its first frame, and the odometry's registration two
-(one outer LM iteration, the final correspondence step) captured on its
-first registration (``reg_graphs``); the host reads one flag per outer
-iteration of the registration and of the window solve, and a few more per
-frame. The CPU runs the same code eagerly.
+every stage runs on the device; the backend's window solve is one launch of
+the window kernel and one host read, its IMU preintegration replays a CUDA
+graph captured for each buffer length on its first frame, and the
+odometry's registration two (one outer LM iteration, the final
+correspondence step) captured on its first registration (``reg_graphs``);
+the host reads one flag per outer iteration of the registration, and a few
+more per frame. The CPU runs the same code eagerly.
 
 With ``odometry.enable_scan_to_map`` (the nyl and garden presets) the
 odometry is ``scan2map.step``: the scan-to-scan step, then a second
@@ -250,8 +250,8 @@ class Engine:
         self._uniforms_fn = uniforms
         self.state = EngineState()
         self.timers = StageTimers() if timers is None else timers
-        # on the card the backend's fixed-shape pieces replay CUDA graphs;
-        # the CPU runs them eagerly
+        # on the card the backend's preintegration replays CUDA graphs and
+        # its window solve launches the window kernel; the CPU runs both eagerly
         on_card = self.device.type == "cuda"
         self.graphs = slam.BackendGraphs(cfg.backend, cfg.imu, dtype, self.device) if on_card else None
         # and so does the odometry's registration, captured on its first frame

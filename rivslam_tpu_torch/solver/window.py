@@ -16,27 +16,36 @@ iteration (``window_iteration``) is a fixed-shape function of a carry
 of the lambda search, each masked by a done flag that freezes the carry
 bitwise once a try is accepted or the step falls below 1e-8, as the
 reference's inner loop stops there. A carry that enters done leaves
-unchanged too. The host runs outer iterations up to
-``max_solver_iterations`` and reads one flag per iteration. The LM
+unchanged too. ``solve_window`` runs outer iterations up to
+``max_solver_iterations``, reading one flag per iteration. The LM
 bookkeeping (lambda, nu, the accept test, the convergence test) follows the
 reference's order, and so does GN's.
 
-On the card the engine replays one outer iteration as a CUDA graph
-(``GraphedSolver``), captured once for the window, dtype, configuration and
-``use_schur``; the CPU runs ``solve_window`` eagerly.
+On the card the whole solve is one launch of a hand-written kernel
+(``csrc/window_lm.cu``: a thread block per window, the same linearization
+by dual numbers, a banded Cholesky for the damped system, with or without
+``use_schur``, and the same bookkeeping; tries and iterations whose outcome
+is known are not run). ``solve`` launches it for CUDA tensors and runs
+``solve_window``, its plain twin, for CPU tensors; ``FusedSolver`` is the
+Engine's, with its launches counted.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
+import os
 
 import torch
 
-from rivslam_tpu_torch.core import cuda_graph, lie
+from rivslam_tpu_torch.core import lie
 from rivslam_tpu_torch.core.config import BackendConfig
+from rivslam_tpu_torch.core.navstate import GRAVITY
 from rivslam_tpu_torch.eval import timing
 from rivslam_tpu_torch.factors import preintegration as pre
 from rivslam_tpu_torch.factors import residuals, robust
+from rivslam_tpu_torch.ops import cuda_build
 
 INNER_TRIES = 8  # lambda-search cap (the reference's `j < 8`)
 STEP_TOL = 1e-6  # an accepted step below this cannot move the f32 state
@@ -316,10 +325,12 @@ def initial_carry(x0: WindowState, cfg: BackendConfig) -> tuple:
 
 
 def window_iteration(carry: tuple, f: WindowFactors, cfg: BackendConfig, bias_info, cache,
-                     use_schur: bool = False) -> tuple:
+                     use_schur: bool = False) -> tuple[tuple, torch.Tensor]:
     """One outer LM (or GN) iteration of the reference's ``while_loop``
     body, with no host read: returns the next carry (R, p, v, bg, ba, lam,
-    done). A carry that enters done comes out bitwise unchanged."""
+    done), which a carry that enters done leaves bitwise unchanged, and the
+    count of live lambda tries (0-dim: GN's one step, LM's tries up to and
+    with the one that ended the search; 0 for a carry that enters done)."""
     *xs, lam_in, done_in = carry
     x = WindowState(*xs)
     W = x.window
@@ -351,6 +362,7 @@ def window_iteration(carry: tuple, f: WindowFactors, cfg: BackendConfig, bias_in
         )
         lam_next = torch.where(accept, torch.clamp_min(lam / 10.0, 0.0), torch.clamp_min(lam, 1e-8) * 100.0)
         done_next = converged
+        tries = torch.ones((), dtype=torch.int64, device=H.device)
     else:
         lam = torch.where(lam_in < 0, 1e-5 * torch.max(torch.abs(torch.diagonal(H))), lam_in)
         x_i, nu = x, torch.full((), 2.0, dtype=dtype, device=H.device)
@@ -358,6 +370,7 @@ def window_iteration(carry: tuple, f: WindowFactors, cfg: BackendConfig, bias_in
         success = torch.zeros((), dtype=torch.bool, device=H.device)
         dmax = torch.full((), torch.inf, dtype=dtype, device=H.device)
         y_new = y0
+        tries = torch.zeros((), dtype=torch.int64, device=H.device)
         for _ in range(INNER_TRIES):
             # every try runs; one past done changes nothing (the reference's
             # inner while_loop stops at an accepted or vanishing step)
@@ -368,6 +381,7 @@ def window_iteration(carry: tuple, f: WindowFactors, cfg: BackendConfig, bias_in
             rho = (y0 - y1) / torch.where(torch.abs(denom) < 1e-30, 1e-30, denom)
             accept = (rho > 0) & (y1 < y0)
             live = ~idone
+            tries = tries + live.to(torch.int64)
             take = live & accept
             lam_new = torch.where(
                 accept,
@@ -386,7 +400,7 @@ def window_iteration(carry: tuple, f: WindowFactors, cfg: BackendConfig, bias_in
         )
         x_next, lam_next, done_next = x_i, lam, converged | ~success
     out = _select(done_in, x, x_next).astuple()
-    return (*out, torch.where(done_in, lam_in, lam_next), done_in | done_next)
+    return (*out, torch.where(done_in, lam_in, lam_next), done_in | done_next), torch.where(done_in, 0, tries)
 
 
 def solve_window(
@@ -395,123 +409,179 @@ def solve_window(
     cfg: BackendConfig,
     bias_info: tuple[float, float],
     use_schur: bool = False,
-) -> tuple[WindowState, torch.Tensor, int]:
-    """LM (or GN) to convergence within the iteration cap, eagerly. Returns
-    (state, chi2, iterations)."""
+) -> tuple[WindowState, torch.Tensor, int, int]:
+    """LM (or GN) to convergence within the iteration cap, eagerly: the
+    kernel's plain twin. Returns (state, chi2, iterations, lambda tries)."""
     cache = whiten_cache(f, bias_info, x0.window, x0.p.dtype)
     carry = initial_carry(x0, cfg)
-    it = 0
+    it, tries = 0, 0
     while it < cfg.max_solver_iterations:
-        carry = window_iteration(carry, f, cfg, bias_info, cache, use_schur)
+        carry, n = window_iteration(carry, f, cfg, bias_info, cache, use_schur)
+        tries = tries + n
         it += 1
         if bool(carry[-1]):  # one host read per outer iteration
             break
     x = WindowState(*carry[:5])
-    return x, chi2_of(x, f, cfg, bias_info, cache), it
+    return x, chi2_of(x, f, cfg, bias_info, cache), it, int(tries)
 
 
-def _factor_fields(f: WindowFactors) -> list[torch.Tensor]:
-    out = []
-    for fld in dataclasses.fields(f):
-        v = getattr(f, fld.name)
-        out.extend(v.astuple() if isinstance(v, pre.Preintegration) else [v])
-    return out
+# ---- the kernel (csrc/window_lm.cu) ------------------------------------------
+
+SOURCE = os.path.join(cuda_build.CSRC, "window_lm.cu")
+KERNELS = ("NONE", "Huber", "Cauchy", "GemanMcClure", "Welsch", "Fair", "DCS", "Saturated", "Tukey",
+           "PseudoHuber")  # robust.kernel_weight's kernels, by the kernel's id
+DTYPES = (torch.float32, torch.float64)
+
+_build: cuda_build.Build | None = None
 
 
-def _factors_from(fields: list[torch.Tensor]) -> WindowFactors:
-    names = [fld.name for fld in dataclasses.fields(WindowFactors)]
-    n_pre = len(dataclasses.fields(pre.Preintegration))
-    k = names.index("preint")
-    vals = fields[:k] + [pre.Preintegration(*fields[k:k + n_pre])] + fields[k + n_pre:]
-    return WindowFactors(**dict(zip(names, vals)))
+def _declare(lib: ctypes.CDLL) -> None:
+    fn = lib.rivslam_window_lm
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    for name in ("rivslam_window_lm_max_window", "rivslam_window_lm_slot_elems"):
+        getattr(lib, name).restype = ctypes.c_int
+    lib.rivslam_window_lm_max_window.argtypes = [ctypes.c_int]
 
 
-def _placeholder(window: int, dtype, device) -> tuple[WindowState, WindowFactors]:
-    """A well-posed window of the given shape (identity poses, unit
-    information) for the capture's warm-up; its values are never used."""
-    kw = dict(dtype=dtype, device=device)
-    W = window
-
-    def eye(n):
-        return torch.eye(n, **kw).expand(W, n, n).clone()
-
-    def zeros(*shape):
-        return torch.zeros((W,) + shape, **kw)
-
-    p_id = pre.Preintegration.identity(dtype, device)
-    preint = pre.Preintegration(*(a.expand((W,) + a.shape).clone() for a in p_id.astuple()))
-    f = WindowFactors(
-        frame_mask=torch.ones(W, dtype=torch.bool, device=device),
-        rel_R=eye(3), rel_p=zeros(3), rel_info=eye(6), prior_R=eye(3), prior_p=zeros(3),
-        prior_info=eye(6), preint=preint, preint_info=eye(9), vel_meas=zeros(3),
-        vel_info=torch.ones((W, 3), **kw),
-        plane_node=torch.tensor([0.0, 0.0, 1.0, 0.0], **kw).expand(W, 4).clone(),
-        plane_meas=torch.tensor([0.0, 0.0, 1.0, 0.0], **kw).expand(W, 4).clone(),
-        plane_info=torch.ones(W, **kw), plane_valid=torch.ones(W, dtype=torch.bool, device=device),
-    )
-    x = WindowState(R=eye(3), p=zeros(3), v=zeros(3), bg=zeros(3), ba=zeros(3))
-    return x, f
+def build() -> cuda_build.Build:
+    """Compile (once per source hash) and load the kernel library."""
+    global _build
+    if _build is None:
+        _build = cuda_build.build(SOURCE, _declare)
+    return _build
 
 
-class GraphedSolver:
-    """``solve_window`` on the card for one fixed window, dtype,
-    configuration and ``use_schur``, as two CUDA graphs over shared static
-    inputs (the carry, the factors and their whitening cache), captured at
-    construction: one outer iteration (``window_iteration``: the
-    linearization with ``jacfwd`` under ``vmap`` and the INNER_TRIES masked
-    tries), which writes its next carry back into its inputs, and the final
-    chi2. A solve copies x0, the factors and the cache into the inputs,
-    replays the iteration until its done flag reads true (one host read per
-    iteration, at most ``max_solver_iterations``), then replays the chi2."""
+@functools.cache
+def max_window(dtype) -> int:
+    """The most slots a window of ``dtype`` may have: what fits the block's
+    shared memory, as the kernel's library reports it (its layout lives in
+    the source alone; this builds the library)."""
+    return build().lib.rivslam_window_lm_max_window(int(dtype == torch.float64))
 
-    def __init__(self, cfg: BackendConfig, bias_info, window: int, dtype, device,
-                 use_schur: bool = False):
-        self.cfg, self.bias_info, self.window, self.use_schur = cfg, bias_info, window, use_schur
-        x0, f0 = _placeholder(window, dtype, device)
-        cache0 = whiten_cache(f0, bias_info, window, dtype)
-        self._n_fac = len(_factor_fields(f0))
-        inputs = [t.clone() for t in (*initial_carry(x0, cfg), *_factor_fields(f0), *cache0)]
-        self._carry = inputs[:7]
 
-        def unpack(args):
-            carry = args[:7]
-            f = _factors_from(list(args[7:7 + self._n_fac]))
-            return carry, f, tuple(args[7 + self._n_fac:])
+def _inputs(x: WindowState, f: WindowFactors) -> list[torch.Tensor]:
+    """The kernel's inputs in its order (``In`` in the source)."""
+    p = f.preint
+    return [*x.astuple(), f.frame_mask, f.rel_R, f.rel_p, f.rel_info, f.prior_R, f.prior_p, f.prior_info,
+            p.dt, p.dR, p.dv, p.dp, p.dR_dbg, p.dV_dbg, p.dV_dba, p.dP_dbg, p.dP_dba, p.bg, p.ba,
+            f.preint_info, f.vel_meas, f.vel_info, f.plane_node, f.plane_meas, f.plane_info, f.plane_valid]
 
-        def iteration(*args):
-            carry, f, cache = unpack(args)
-            new = window_iteration(carry, f, cfg, bias_info, cache, use_schur)
-            for dst, src in zip(carry, new):
-                dst.copy_(src)
-            return ()
 
-        def final_chi2(*args):
-            carry, f, cache = unpack(args)
-            return (chi2_of(WindowState(*carry[:5]), f, cfg, bias_info, cache),)
+def check(x: WindowState, f: WindowFactors) -> tuple[int, int]:
+    """Raise on what the kernel cannot take: a dtype other than float32 or
+    float64, inputs of mixed dtypes, devices or shapes, an empty window.
+    Every field carries a leading [B]. Returns (B, W). The most slots the
+    kernel's shared memory holds is ``max_window``, checked at the launch."""
+    dtype = x.p.dtype
+    if dtype not in DTYPES:
+        raise ValueError(f"the window kernel takes float32 or float64, got {dtype}")
+    if x.p.ndim != 3 or x.p.shape[-1] != 3:
+        raise ValueError(f"state p must be [B, W, 3], got {tuple(x.p.shape)}")
+    B, W = x.p.shape[:2]
+    if W < 1:
+        raise ValueError("the window has no slot")
+    for t in _inputs(x, f):
+        want = torch.bool if t is f.frame_mask or t is f.plane_valid else dtype
+        if t.dtype != want:
+            raise ValueError(f"window inputs must be {dtype} (masks bool), got {t.dtype}")
+        if t.device != x.p.device or tuple(t.shape[:2]) != (B, W):
+            raise ValueError(f"window inputs must be [B={B}, W={W}, ...] on {x.p.device}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+    return B, W
 
-        self._iteration = cuda_graph.Graphed("window_iteration", iteration, inputs)
-        self._chi2 = cuda_graph.Graphed("window_chi2", final_chi2, inputs)
 
-    @property
-    def replays(self) -> int:
-        return self._iteration.replays + self._chi2.replays
+def _params(cfg: BackendConfig, bias_info, dtype):
+    """The kernel's scalar parameters: (double array, int array)."""
+    kernels = _kernels(cfg)
+    for name, _ in kernels:
+        if name not in KERNELS:
+            raise ValueError(f"unknown robust kernel {name}")
+    bg_info, ba_info = bias_info
+    dp = (ctypes.c_double * 11)(*(float(size) for _, size in kernels), max(bg_info, 0.0) ** 0.5,
+                                max(ba_info, 0.0) ** 0.5, GRAVITY, _rel_tol(dtype))
+    ip = (ctypes.c_int * 9)(*(KERNELS.index(name) for name, _ in kernels), int(cfg.optimizer == "GN"),
+                            int(cfg.max_solver_iterations))
+    return dp, ip
 
-    def __call__(self, x0: WindowState, f: WindowFactors) -> tuple[WindowState, torch.Tensor, int]:
-        if x0.window != self.window:
-            raise ValueError(f"window of {x0.window} slots, but the graph was captured for {self.window}")
-        with timing.span("window_solve.load"):
-            cache = whiten_cache(f, self.bias_info, self.window, x0.p.dtype)
-            self._iteration.load(*initial_carry(x0, self.cfg), *_factor_fields(f), *cache)
-        done = self._carry[-1]
-        it = 0
-        while it < self.cfg.max_solver_iterations:
-            with timing.span("window_solve.replay"):
-                self._iteration.replay()
-            it += 1
-            with timing.span("window_solve.done_read"):
-                finished = bool(done)  # one host read per outer iteration
-            if finished:
-                break
-        with timing.span("window_solve.chi2"):
-            (chi2,) = self._chi2.replay()
-            return WindowState(*(t.clone() for t in self._carry[:5])), chi2.clone(), it
+
+def solve_batched(x: WindowState, f: WindowFactors, cfg: BackendConfig, bias_info,
+                  params=None) -> tuple[WindowState, torch.Tensor, torch.Tensor]:
+    """One launch of the kernel over B windows (every field [B, W, ...], on
+    the card). Returns (states, chi2 [B], counts [B, 2] int32: outer
+    iterations and lambda tries), on the device, unread. ``use_schur``
+    needs no argument: the banded factorization serves both settings."""
+    B, W = check(x, f)
+    dev, dtype = x.p.device, x.p.dtype
+    if dev.type != "cuda":
+        raise ValueError(f"the window kernel runs on CUDA tensors, got {dev}")
+    if W > max_window(dtype):
+        raise ValueError(f"window of {W} slots: the kernel takes 1..{max_window(dtype)} in {dtype}")
+    dp, ip = _params(cfg, bias_info, dtype) if params is None else params
+    ins = [t.contiguous() for t in _inputs(x, f)]
+    out = torch.empty(B * W * 21 + B, dtype=dtype, device=dev)
+    sizes = (9, 3, 3, 3, 3)
+    parts = torch.split(out, [B * W * n for n in sizes] + [B])
+    counts = torch.empty((B, 2), dtype=torch.int32, device=dev)
+    ptrs = (ctypes.c_void_p * len(ins))(*(t.data_ptr() for t in ins))
+    outs = (ctypes.c_void_p * 7)(*(t.data_ptr() for t in parts), counts.data_ptr())
+    cuda_build.launch(build().lib.rivslam_window_lm, dev, ptrs, outs, dp, ip, B, W,
+                      int(dtype == torch.float64))
+    cuda_build.count_launch(solve_batched)
+    states = WindowState(parts[0].view(B, W, 3, 3), *(t.view(B, W, 3) for t in parts[1:5]))
+    return states, parts[5], counts
+
+
+solve_batched.launches = 0  # kernel launches, but for the loop worker's
+solve_batched.worker_launches = 0  # those of the loop worker's thread
+
+
+def _lead1(obj):
+    """Every tensor of a state or factors with a leading [1] (a view)."""
+    kw = {}
+    for fld in dataclasses.fields(obj):
+        v = getattr(obj, fld.name)
+        kw[fld.name] = _lead1(v) if dataclasses.is_dataclass(v) else v[None]
+    return type(obj)(**kw)
+
+
+def solve(x0: WindowState, f: WindowFactors, cfg: BackendConfig, bias_info, use_schur: bool = False,
+          params=None) -> tuple[WindowState, torch.Tensor, int, int]:
+    """The window solve: one kernel launch and one host read (the
+    iteration and try counts) for CUDA tensors, ``solve_window`` for CPU
+    tensors. Counts the tracer's ``lm_iterations`` and ``lm_tries`` under
+    the span open around the call. ``params``: the kernel's, made once by
+    ``_params``. Returns (state, chi2, iterations, lambda tries)."""
+    dev = x0.p.device
+    if dev.type == "cpu":
+        x, chi2, it, tries = solve_window(x0, f, cfg, bias_info, use_schur)
+    elif dev.type == "cuda":
+        with timing.span("window_solve.launch"):
+            xb, chi2b, counts = solve_batched(_lead1(x0), _lead1(f), cfg, bias_info, params)
+        with timing.span("window_solve.read"):
+            it, tries = counts[0].tolist()
+        x, chi2 = WindowState(*(t[0] for t in xb.astuple())), chi2b[0]
+    else:
+        raise ValueError(f"unsupported device {dev}")
+    timing.count("lm_iterations", n=it)
+    timing.count("lm_tries", n=tries)
+    return x, chi2, it, tries
+
+
+class FusedSolver:
+    """``solve`` for one configuration and bias information, its kernel
+    parameters made once. ``replays`` counts its launches (one a solve on
+    the card, none on the CPU); ``iterations`` and ``tries`` add up its
+    solves' outer iterations and lambda tries."""
+
+    def __init__(self, cfg: BackendConfig, bias_info, dtype):
+        self.cfg, self.bias_info = cfg, tuple(bias_info)
+        self._params = _params(cfg, self.bias_info, dtype) if dtype in DTYPES else None
+        self.replays = self.iterations = self.tries = 0
+
+    def __call__(self, x0: WindowState, f: WindowFactors) -> tuple[WindowState, torch.Tensor, int, int]:
+        x, chi2, it, tries = solve(x0, f, self.cfg, self.bias_info, self.cfg.use_schur, self._params)
+        self.replays += x0.p.device.type == "cuda"
+        self.iterations += it
+        self.tries += tries
+        return x, chi2, it, tries

@@ -298,7 +298,7 @@ def test_solve_window_matches_reference(problem, optimizer, use_schur):
     cfg = dataclasses.replace(config.BackendConfig(), optimizer=optimizer, max_solver_iterations=12)
     ref_cfg = dataclasses.replace(ref_config.BackendConfig(), optimizer=optimizer, max_solver_iterations=12)
     xw, chi2_w, it_w = ref_win.solve_window(x0, f, ref_cfg, BIAS_INFO, use_schur=use_schur)
-    x, chi2, it = window.solve_window(px0, pf, cfg, BIAS_INFO, use_schur=use_schur)
+    x, chi2, it, _ = window.solve_window(px0, pf, cfg, BIAS_INFO, use_schur=use_schur)
     assert it == int(it_w)
     for name in ("R", "p", "v", "bg", "ba"):
         close(getattr(x, name), getattr(xw, name), 1e-8)
@@ -313,7 +313,7 @@ def test_solve_window_masked_frames(problem):
     pf2 = dataclasses.replace(pf, frame_mask=T(fm))
     cfg, ref_cfg = config.BackendConfig(), ref_config.BackendConfig()
     xw, chi2_w, it_w = ref_win.solve_window(x0, f2, ref_cfg, BIAS_INFO)
-    x, chi2, it = window.solve_window(px0, pf2, cfg, BIAS_INFO)
+    x, chi2, it, _ = window.solve_window(px0, pf2, cfg, BIAS_INFO)
     assert it == int(it_w)
     close(x.p, xw.p, 1e-8)
     close(chi2, chi2_w, 0.0, rtol=1e-7)
@@ -328,17 +328,17 @@ def test_masked_iterations_past_convergence_change_nothing(problem, optimizer):
     _, _, px0, pf = problem
     cfg = dataclasses.replace(config.BackendConfig(), optimizer=optimizer, max_solver_iterations=40)
     cache = window.whiten_cache(pf, BIAS_INFO, px0.window, px0.p.dtype)
-    x, chi2, it = window.solve_window(px0, pf, cfg, BIAS_INFO)
+    x, chi2, it, _ = window.solve_window(px0, pf, cfg, BIAS_INFO)
     assert it < cfg.max_solver_iterations
     carry = window.initial_carry(px0, cfg)
     for _ in range(it):
-        carry = window.window_iteration(carry, pf, cfg, BIAS_INFO, cache)
+        carry, _ = window.window_iteration(carry, pf, cfg, BIAS_INFO, cache)
     assert bool(carry[-1])
     for a, b in zip(carry[:5], x.astuple()):
         assert torch.equal(a, b)
     more = carry
     for _ in range(3):
-        more = window.window_iteration(more, pf, cfg, BIAS_INFO, cache)
+        more, _ = window.window_iteration(more, pf, cfg, BIAS_INFO, cache)
     for a, b in zip(more, carry):
         assert torch.equal(a, b)
     # the final chi2 is the one solve_window reports

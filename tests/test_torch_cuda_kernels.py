@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1, K2, K3) on the card, against their plain
-twins, and the paths that launch them.
+"""The port's CUDA kernels (K1, K2, K3 and the window solve) on the card,
+against their plain twins, and the paths that launch them.
 
 Also the asynchronous loop worker beside the frame path: a graph capture
 that meets a worker job, the worker's launch counts, and the scan-to-map
@@ -27,6 +27,7 @@ from rivslam_tpu_torch.io import synthetic
 from rivslam_tpu_torch import pipeline, presets
 from rivslam_tpu_torch.io import datasets
 from rivslam_tpu_torch.ops import nn_argmin, nn_corr, nn_gather
+from torch_window_problem import BIAS_INFO, WINDOW_TOL, twin_limits
 
 pytestmark = pytest.mark.cuda
 
@@ -424,7 +425,7 @@ def test_engine_with_loop_closure_and_exact_path(dev):
     assert poses.shape == (4, 4, 4) and np.isfinite(poses).all()
 
 
-# ---- the backend's CUDA graphs ----------------------------------------------------
+# ---- the backend: its CUDA graphs and the window kernel -----------------------------
 
 
 def _backend_frames(n_frames=5, cap=192, imu_cap=48):
@@ -459,32 +460,191 @@ def _backend_frames(n_frames=5, cap=192, imu_cap=48):
 @pytest.mark.parametrize("optimizer,use_schur", [("LM", False), ("LM", True), ("GN", False)],
                          ids=["LM-dense", "LM-schur", "GN-dense"])
 def test_graphed_backend_equals_its_eager_run(dev, optimizer, use_schur):
-    """Several frames of changing factors through backend_step: the CUDA
-    graphs (preintegration, window iteration, final chi2) give bitwise what
-    the same functions give eagerly on the card, so the static buffers are
-    refreshed every frame."""
+    """Several frames of changing factors through backend_step with the
+    Engine's backend pieces, so nothing stale is carried from frame to
+    frame: the preintegration's CUDA graph gives bitwise what the eager
+    preintegration gives on the card, and on each window that backend_step
+    rolls and fills, the window kernel (``FusedSolver``, one launch a
+    frame) gives what its plain twin gives on the CPU, within the limits
+    that the twin's own spread on that window sets (``twin_limits``), with
+    the same iterations and tries."""
     from rivslam_tpu_torch.backend import slam
     from rivslam_tpu_torch.core import config, cuda_graph
+    from rivslam_tpu_torch.factors import preintegration as pre
+    from rivslam_tpu_torch.solver import window
 
     bk = dataclasses.replace(config.BackendConfig(), optimizer=optimizer, use_schur=use_schur)
     imu = config.ImuConfig()
     graphs = slam.BackendGraphs(bk, imu, torch.float32, dev)
-    st_g = st_e = slam.init_state(bk, imu, 192, torch.float32, dev)
-    iters = []
-    for fr in _backend_frames():
+    graphed, fused = graphs.preintegrate, graphs.solve
+    bias_info, iters = slam.bias_information(imu), []
+
+    def preintegrate(*args):
+        got = graphed(*args)
+        with cuda_graph.cusolver():
+            want = pre.preintegrate(*args, imu.gyr_noise, imu.acc_noise)
+        for a, b in zip(got.astuple(), want.astuple()):
+            assert torch.equal(a, b)
+        return got
+
+    def solve(x0, f):
+        got = fused(x0, f)
+        x_cpu, f_cpu = _on(x0, "cpu"), _on(f, "cpu")
+        tol = twin_limits(x_cpu, f_cpu, bk, bias_info, use_schur)
+        xk, chi2_k, it_k, tries_k = _kernel_against_twin(dev, x_cpu, f_cpu, bk, use_schur, tol, bias_info)
+        assert (got[2], got[3]) == (it_k, tries_k) and float(got[1]) == chi2_k
+        for a, b in zip(got[0].astuple(), xk.astuple()):
+            assert torch.equal(a.cpu(), b)  # the Engine's launch is the one held to the twin
+        iters.append(it_k)
+        return got
+
+    graphs.preintegrate, graphs.solve = preintegrate, solve
+    st = slam.init_state(bk, imu, 192, torch.float32, dev)
+    launches = window.solve_batched.launches
+    frames = _backend_frames()
+    for fr in frames:
         frame = slam.BackendFrame(**{
             k: torch.as_tensor(v, dtype=torch.bool if v.dtype == bool else torch.float32, device=dev)
             for k, v in fr.items()})
-        st_g, out_g = slam.backend_step(st_g, frame, bk, imu, graphs)
-        with cuda_graph.cusolver():
-            st_e, out_e = slam.backend_step(st_e, frame, bk, imu)
-        assert out_g.iterations == out_e.iterations
-        iters.append(out_g.iterations)
-        for a, b in ((out_g.pose, out_e.pose), (out_g.chi2, out_e.chi2)):
+        st, out = slam.backend_step(st, frame, bk, imu, graphs)
+        assert out.iterations == iters[-1]
+    assert fused.replays == len(frames) and graphed.replays == len(frames) and max(iters) >= 2
+    assert window.solve_batched.launches - launches == 2 * len(frames)  # the Engine's and the check's
+
+
+ROBUST = ("odometry_edge_robust_kernel", "scan_match_prior_robust_kernel", "integ_edge_robust_kernel",
+          "floor_edge_robust_kernel")
+
+
+def _on(obj, dev):
+    return type(obj)(**{f.name: _on(getattr(obj, f.name), dev) if dataclasses.is_dataclass(getattr(obj, f.name))
+                        else getattr(obj, f.name).to(dev) for f in dataclasses.fields(obj)})
+
+
+def _window_cfg(optimizer="LM", kernels="shipped", **kw):
+    from rivslam_tpu_torch.core import config
+
+    bk = dataclasses.replace(config.BackendConfig(), optimizer=optimizer, **kw)
+    if kernels != "shipped":
+        bk = dataclasses.replace(bk, **{k: kernels for k in ROBUST})
+    return bk
+
+
+def _kernel_against_twin(dev, x0, f, bk, use_schur=False, tol=WINDOW_TOL["shipped"], bias_info=BIAS_INFO):
+    """One kernel launch on the card against the twin on the CPU; returns
+    the kernel's (state, chi2, iterations, tries)."""
+    from rivslam_tpu_torch.solver import window
+
+    xt, chi2_t, it_t, tries_t = window.solve_window(x0, f, bk, bias_info, use_schur)
+    xk, chi2_k, counts = window.solve_batched(window._lead1(_on(x0, dev)), window._lead1(_on(f, dev)), bk, bias_info)
+    torch.cuda.synchronize()
+    xk = window.WindowState(*(t[0].cpu() for t in xk.astuple()))
+    it_k, tries_k = counts[0].tolist()
+    assert (it_k, tries_k) == (it_t, tries_t)
+    for a, b in zip(xk.astuple(), xt.astuple()):
+        assert torch.isfinite(a).all()
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=tol[0])
+    chi2_k = float(chi2_k[0])
+    assert abs(chi2_k - float(chi2_t)) <= tol[1] * max(abs(float(chi2_t)), 1e-30)
+    return xk, chi2_k, it_k, tries_k
+
+
+@pytest.mark.parametrize("use_schur", [False, True], ids=["dense", "schur"])
+@pytest.mark.parametrize("optimizer,kernels", [("LM", "NONE"), ("LM", "shipped"), ("LM", "Cauchy"),
+                                               ("GN", "NONE"), ("GN", "shipped")])
+def test_window_kernel_matches_its_twin(dev, optimizer, kernels, use_schur):
+    from torch_window_problem import make_window
+
+    for seed in (2, 5):
+        x0, f = make_window(seed=seed, dtype=torch.float32)
+        _kernel_against_twin(dev, x0, f, _window_cfg(optimizer, kernels), use_schur, WINDOW_TOL[kernels])
+
+
+@pytest.mark.parametrize("case", ["masked", "no_ground", "converged", "first_frame"])
+def test_window_kernel_on_partial_windows(dev, case):
+    """A window still filling up (leading slots masked), ground edges
+    absent, a window whose first iteration is already done (started at
+    the twin's solution), and the Engine's first frame (one valid slot: H
+    = 0, lambda = 0, a damped system that is not positive definite, every
+    try rejected rather than NaN in the state)."""
+    from rivslam_tpu_torch.solver import window
+    from torch_window_problem import BIAS_INFO, make_window
+
+    x0, f = make_window(dtype=torch.float32)
+    bk = _window_cfg()
+    if case == "masked":
+        f = dataclasses.replace(f, frame_mask=torch.tensor([False, False, True, True, True, True]))
+    elif case == "no_ground":
+        f = dataclasses.replace(f, plane_valid=torch.tensor([True, False, True, False, True, True]))
+    elif case == "converged":
+        x0 = window.solve_window(x0, f, dataclasses.replace(bk, max_solver_iterations=40), BIAS_INFO)[0]
+    else:
+        f = dataclasses.replace(f, frame_mask=torch.tensor([False] * 5 + [True]))
+    x, chi2, it, tries = _kernel_against_twin(dev, x0, f, bk)
+    if case == "converged":
+        assert it == 1
+    if case == "first_frame":
+        assert (it, tries, chi2) == (1, window.INNER_TRIES, 0.0)
+        for a, b in zip(x.astuple(), x0.astuple()):
             assert torch.equal(a, b)
-        for a, b in zip(st_g.nav.astuple() + st_g.preint.astuple(), st_e.nav.astuple() + st_e.preint.astuple()):
-            assert torch.equal(a, b)
-    assert graphs.solve.replays >= sum(iters) and max(iters) >= 2
+
+
+def test_window_kernel_float64_matches_its_twin(dev):
+    """In float64 the kernel and the twin part only by rounding."""
+    from torch_window_problem import make_window
+
+    for optimizer in ("LM", "GN"):
+        x0, f = make_window(dtype=torch.float64)
+        _kernel_against_twin(dev, x0, f, _window_cfg(optimizer), tol=(1e-9, 1e-11))
+
+
+def test_window_kernel_batch_equals_single_launches(dev):
+    """B = 3 windows in one launch (a block each) give bitwise what three
+    launches of B = 1 give."""
+    from rivslam_tpu_torch.solver import window
+    from torch_window_problem import BIAS_INFO, make_window
+
+    probs = [make_window(seed=s, dtype=torch.float32, device=dev) for s in (1, 2, 5)]
+    probs[1] = (probs[1][0], dataclasses.replace(
+        probs[1][1], frame_mask=torch.tensor([False, True, True, True, True, True], device=dev)))
+    bk = _window_cfg()
+
+    def stack(objs):
+        return type(objs[0])(**{f.name: stack([getattr(o, f.name) for o in objs])
+                                if dataclasses.is_dataclass(getattr(objs[0], f.name))
+                                else torch.stack([getattr(o, f.name) for o in objs])
+                                for f in dataclasses.fields(objs[0])})
+
+    launches = window.solve_batched.launches
+    xb, chi2_b, counts_b = window.solve_batched(stack([p[0] for p in probs]), stack([p[1] for p in probs]), bk, BIAS_INFO)
+    assert window.solve_batched.launches - launches == 1
+    for b, (x0, f) in enumerate(probs):
+        x1, chi2_1, counts_1 = window.solve_batched(window._lead1(x0), window._lead1(f), bk, BIAS_INFO)
+        assert torch.equal(counts_b[b], counts_1[0]) and torch.equal(chi2_b[b], chi2_1[0])
+        for a, c in zip(xb.astuple(), x1.astuple()):
+            assert torch.equal(a[b], c[0])
+
+
+def test_window_kernel_counts_launches_and_refuses_what_it_cannot_take(dev):
+    from rivslam_tpu_torch.solver import window
+    from torch_window_problem import BIAS_INFO, make_window
+
+    assert window.max_window(torch.float32) == 25 and window.max_window(torch.float64) == 12
+    x0, f = make_window(dtype=torch.float32, device=dev)
+    solver = window.FusedSolver(_window_cfg(), BIAS_INFO, torch.float32)
+    launches = window.solve_batched.launches
+    _, _, it, _ = solver(x0, f)
+    assert solver.replays == 1 and window.solve_batched.launches - launches == 1 and it >= 2
+    W = window.max_window(torch.float32) + 1
+    xw, fw = make_window(windows=W, dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match=f"window of {W} slots"):
+        solver(xw, fw)
+    half = window.WindowState(*(t.half() for t in x0.astuple()))
+    with pytest.raises(ValueError, match="float32 or float64"):
+        solver(half, f)
+    assert solver.replays == 1 and window.solve_batched.launches - launches == 1
+    xl, fl = make_window(windows=window.max_window(torch.float32), dtype=torch.float32)
+    _kernel_against_twin(dev, xl, fl, _window_cfg())  # the largest window the kernel takes
 
 
 def test_graphed_preintegration_equals_eager(dev):
@@ -510,24 +670,29 @@ def test_graphed_preintegration_equals_eager(dev):
 
 
 def test_engine_replays_graphs_and_counts_its_kernels(dev):
-    """The Engine on the card runs its backend through the graphs; the K3
-    launches stay outside them, so their count is exact."""
+    """The Engine on the card runs its backend through the graphs and the
+    window kernel, one launch a frame; the K3 launches stay outside the
+    graphs, so their count is exact."""
     seq, _ = synthetic.simulate_sequence(seed=21, radius=8.0, omega=0.25, dt=0.25, n_frames=3,
                                          capacity=1024, world_points=20000, extent=30.0)
     cfg = presets.get("cp")
     cfg = dataclasses.replace(cfg, loop=dataclasses.replace(cfg.loop, enable=False))
     eng = pipeline.Engine(cfg, device=dev)
+    from rivslam_tpu_torch.solver import window
+
     k3 = nn_argmin.nearest_neighbor.launches
+    solves = window.solve_batched.launches
     outs = datasets.replay(eng, seq, 1024, 64)
     assert eng.graphs.preintegrate.replays == 3
-    assert eng.graphs.solve.replays >= 3
+    assert eng.graphs.solve.replays == 3 and window.solve_batched.launches - solves == 3
     n_kf = sum(o["is_keyframe"] for o in outs)
     assert nn_argmin.nearest_neighbor.launches - k3 == 3 + n_kf - 1
 
 
 def test_a_failed_capture_raises(dev):
     """A host read inside a captured function fails the capture, and the
-    failure raises: there is no eager fallback."""
+    failure raises: there is no eager fallback. The card works after it,
+    torch's CUDA generator included."""
     from rivslam_tpu_torch.core import cuda_graph
 
     x = torch.ones(4, device=dev)
@@ -536,6 +701,19 @@ def test_a_failed_capture_raises(dev):
     torch.cuda.synchronize()
     y = torch.ones(4, device=dev) * 2  # the device still works after the failed capture
     assert float(y.sum()) == 8.0
+    _card_works_after_a_failed_capture(dev)
+
+
+def _card_works_after_a_failed_capture(dev):
+    """Right after a failed capture, with no capture between: torch's CUDA
+    generator draws (a capture that fails before it ends would leave it in
+    capture mode, and ``torch.randn`` on the card would raise "Offset
+    increment outside graph capture"), and a capture succeeds."""
+    from rivslam_tpu_torch.core import cuda_graph
+
+    assert torch.isfinite(torch.randn(4, device=dev)).all()
+    g = cuda_graph.Graphed("after a failed capture", lambda t: (t + 1.0,), [torch.ones(4, device=dev)])
+    assert float(g.replay()[0].sum()) == 8.0
 
 
 # ---- K2 and K3 split across a cluster (every S) -----------------------------------
@@ -727,6 +905,7 @@ def test_a_failed_registration_capture_raises(dev):
                                  guess, cfg, graphs)
     torch.cuda.synchronize()
     assert float(torch.ones(4, device=dev).sum()) == 4.0
+    _card_works_after_a_failed_capture(dev)
 
 
 # ---- the asynchronous loop worker beside the frame path --------------------------
@@ -921,3 +1100,29 @@ def test_distributed_registration_runs_through_k2(dev, nccl_world, which):
     want = apdgicp.register(src, tgt, guess, cfg)
     for f in ("T", "H", "error", "converged", "iterations", "num_correspondences", "fitness"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_distributed_window_solve_is_one_launch(dev, nccl_world):
+    """``batched_window_solve`` on a world of one rank: its B windows in one
+    launch of the window kernel, equal to ``solve_batched`` on the batch."""
+    from rivslam_tpu_torch.dist import dist_gn
+    from rivslam_tpu_torch.solver import window
+    from torch_window_problem import BIAS_INFO, make_window
+
+    probs = [make_window(seed=s, dtype=torch.float32, device=dev) for s in (1, 2)]
+    x = window.WindowState(*(torch.stack(ts) for ts in zip(*(p[0].astuple() for p in probs))))
+    f = type(probs[0][1])(**{
+        fl.name: (type(getattr(probs[0][1], fl.name))(*(torch.stack(ts) for ts in zip(
+            *(getattr(p[1], fl.name).astuple() for p in probs))))
+                  if dataclasses.is_dataclass(getattr(probs[0][1], fl.name))
+                  else torch.stack([getattr(p[1], fl.name) for p in probs]))
+        for fl in dataclasses.fields(probs[0][1])})
+    bk = _window_cfg()
+    launches = window.solve_batched.launches
+    xs, chi2, iters = dist_gn.batched_window_solve(x, f, bk, BIAS_INFO, nccl_world)
+    torch.cuda.synchronize()
+    assert window.solve_batched.launches - launches == 1
+    want_x, want_chi2, counts = window.solve_batched(x, f, bk, BIAS_INFO)
+    assert torch.equal(iters, counts[:, 0]) and torch.equal(chi2, want_chi2)
+    for a, b in zip(xs.astuple(), want_x.astuple()):
+        assert torch.equal(a, b)
