@@ -37,10 +37,12 @@ debug mode it sets is process-wide), the tracer keeps:
   and not shown; ``graph_captures``, ``graph_capture_ms`` (host ms of
   warm-up and capture, which run inside a ``graph.capture`` span) and
   ``graph_replays``, by CUDA graph (``core/cuda_graph.Graphed``);
-  ``lm_iterations``, outer iterations of the eager LM
-  (``apdgicp.solve_lm``) and of the window solve (``solver/window.solve``),
+  ``lm_iterations``, outer iterations of the registration's LM, eager
+  (``apdgicp.solve_lm``) or replayed (``apdgicp.GraphedRegistration``), and
+  of the window solve (``solver/window.solve``),
   and ``lm_tries``, the window solve's lambda tries, by the span open
-  around the call.
+  around the call; ``voxel_maps``, the VGICP / NDT voxel maps built
+  (``apdgicp.register_dispatch``, one a problem).
 """
 
 from __future__ import annotations
@@ -57,7 +59,8 @@ from torch.profiler import record_function
 
 SYNC_WARNING = "called a synchronizing CUDA operation"  # torch's sync debug warning
 OUTSIDE = "(outside any span)"  # a counter's key where no span is open
-COUNTERS = ("host_syncs", "graph_captures", "graph_capture_ms", "graph_replays", "lm_iterations", "lm_tries")
+COUNTERS = ("host_syncs", "graph_captures", "graph_capture_ms", "graph_replays", "lm_iterations", "lm_tries",
+            "voxel_maps")
 FRAME_SPAN = "engine.process_frame"
 CAPTURE_SPAN = "graph.capture"
 # records kept while on, the oldest dropped first: about two hours of the
@@ -313,8 +316,8 @@ class StageTimers:
         """Markdown: each span's host ms, calls and host syncs (counted
         under the innermost span) a frame; the ``top`` rows, the frame's
         top-level spans and the time outside them, add up to the frame.
-        Then the graph captures, replays, LM iterations and lambda tries of
-        those frames."""
+        Then the graph captures, replays, LM iterations, lambda tries and
+        voxel maps of those frames."""
         frames = self.frames() if frames is None else frames
         if not frames:
             return ""
@@ -354,6 +357,7 @@ class StageTimers:
             f"LM iterations a frame: {sum(lm.values()) / n:.2f}"
             + (f" ({', '.join(f'{k}: {v / n:.2f}' for k, v in sorted(lm.items()))})" if lm else ""),
             f"window-solve lambda tries a frame: {sum(tries.values()) / n:.2f}",
+            f"voxel maps a frame: {sum(counter('voxel_maps').values()) / n:.2f}",
         ]
         return "\n".join(rows + lines)
 

@@ -25,7 +25,8 @@ tries, ``lm_try``); a try or an iteration past done leaves that problem's
 state bitwise unchanged, so B problems give what B separate reference calls
 give. ``solve_lm`` runs the iterations eagerly and reads one flag from the
 device after each; ``GraphedRegistration`` replays them as CUDA graphs on
-the card (the Engine's odometry), reading the same flag.
+the card (the Engine's odometry, and a voxel registration handed no graphs),
+reading the same flag.
 
 VGICP and NDT (``frontend/vgicp.py``) are models for the same LM driver,
 reached through ``register_dispatch``.
@@ -54,7 +55,8 @@ from rivslam_tpu_torch.eval import timing
 from rivslam_tpu_torch.ops import eig3, knn, nn_corr
 
 _FAST_METHODS = ("FAST_APDGICP", "FAST_GICP", "GICP", "GICP_OMP")
-_VOXEL_METHODS = ("VGICP", "FAST_VGICP", "FAST_VGICP_CUDA", "NDT", "NDT_OMP", "NDT_CUDA")
+_VGICP_METHODS = ("VGICP", "FAST_VGICP", "FAST_VGICP_CUDA")
+_VOXEL_METHODS = _VGICP_METHODS + ("NDT", "NDT_OMP", "NDT_CUDA")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -278,10 +280,14 @@ class GraphedRegistration:
     problem is still active, and the final correspondence step. A
     registration copies its inputs in, replays the iteration reading that
     one flag after each replay (at most ``cfg.max_iterations``), then
-    replays the final step. A capture failure raises."""
+    replays the final step. The outer iterations replayed count under the
+    tracer's ``lm_iterations``. With ``max_keys``, a new key past that many
+    drops the oldest key's graphs (and their memory). A capture failure
+    raises."""
 
-    def __init__(self):
+    def __init__(self, max_keys: int | None = None):
         self._graphs: dict = {}
+        self.max_keys = max_keys
         self.reads = 0  # host reads of the active flag
 
     @property
@@ -326,18 +332,23 @@ class GraphedRegistration:
         key = (model, cfg, T0.dtype, tuple(T0.shape),
                tuple((tuple(t.shape), t.dtype) for t in problem))
         if key not in self._graphs:
+            if self.max_keys is not None and len(self._graphs) >= self.max_keys:
+                del self._graphs[next(iter(self._graphs))]
             self._graphs[key] = self._capture(model, problem, T0, cfg)
         iteration, final = self._graphs[key]
         iteration.load(*problem, *lm_init(T0, cfg))
+        run = 0
         for i in range(cfg.max_iterations):
             with timing.span("registration.replay"):
                 (active,) = iteration.replay()
+            run += 1
             if i + 1 < cfg.max_iterations:
                 self.reads += 1
                 with timing.span("registration.active_read"):
                     still = bool(active)
                 if not still:
                     break
+        timing.count("lm_iterations", n=run)
         out = final.replay()
         T, _, converged, _, it, Hf = iteration.inputs[len(problem):]
         return tuple(t.clone() for t in (T, Hf, converged, it, *out))
@@ -582,17 +593,38 @@ def prepare(xyz, mask, cfg: RegistrationConfig, device="cuda") -> PreparedCloud:
         return estimate_covariances(xyz, mask, cfg)
 
 
+# the voxel registrations' graphs for callers that hand none (the eager
+# scan-match entry on the card), made on first use
+_voxel_graphs: GraphedRegistration | None = None
+_VOXEL_GRAPH_KEYS = 4
+
+
+def _eager_voxel_graphs() -> GraphedRegistration:
+    global _voxel_graphs
+    if _voxel_graphs is None:
+        _voxel_graphs = GraphedRegistration(max_keys=_VOXEL_GRAPH_KEYS)
+    return _voxel_graphs
+
+
 def register_dispatch(
     source: PreparedCloud, target: PreparedCloud, guess, cfg: RegistrationConfig,
-    device="cuda", graphs: GraphedRegistration | None = None,
+    device="cuda", graphs: GraphedRegistration | None = None, eager: bool = False,
 ) -> RegistrationResult:
     """Method factory (registrations.cpp:38-140): FAST_APDGICP / FAST_GICP /
     GICP / GICP_OMP take the structure-of-arrays fast path when
     cfg.use_fast_path; VGICP / FAST_VGICP / FAST_VGICP_CUDA and NDT /
-    NDT_OMP / NDT_CUDA voxelize the target (``frontend/vgicp.py``; NDT
-    point-to-distribution); everything else takes the exact ``register``
-    (ICP drops the Mahalanobis metric). Eager unless the caller hands it
-    ``graphs`` (the Engine's odometry does, on the card)."""
+    NDT_OMP / NDT_CUDA voxelize the target (``frontend/vgicp.py``): VGICP
+    into fast_gicp's additive map of the target's point covariances, NDT
+    into its point spread (point-to-distribution); everything else takes
+    the exact ``register`` (ICP drops the Mahalanobis metric). Eager unless
+    the caller hands it ``graphs`` (the Engine's odometry does, on the
+    card), but for a voxel method on the card, which replays the module's
+    own graphs (the newest ``_VOXEL_GRAPH_KEYS`` shapes) when handed none:
+    its outer LM iteration is ~1,300 small operations (the packed-key match
+    and the lambda tries), ~30 ms of host dispatch eagerly against a few ms
+    of device work. ``eager=True`` runs it eagerly all the same. The voxel
+    map's build is the span ``registration.voxel_map``, and the tracer's
+    ``voxel_maps`` counts the maps built (one a problem)."""
     dev = resolve(device)
     source = _map(source, lambda t: t.to(dev))
     target = _map(target, lambda t: t.to(dev))
@@ -600,15 +632,20 @@ def register_dispatch(
     if source.xyz.ndim == 2:
         batched = register_dispatch(
             _map(source, lambda t: t[None]), _map(target, lambda t: t[None]),
-            guess[None], cfg, dev, graphs,
+            guess[None], cfg, dev, graphs, eager,
         )
         return _map(batched, lambda t: t[0])
     m = cfg.method
     if m in _VOXEL_METHODS:
         from rivslam_tpu_torch.frontend import vgicp
 
-        vm = vgicp.build_voxel_map(target.xyz, target.mask, cfg)
-        if m in ("VGICP", "FAST_VGICP", "FAST_VGICP_CUDA"):
+        is_vgicp = m in _VGICP_METHODS
+        with timing.span("registration.voxel_map"):
+            vm = vgicp.build_voxel_map(target.xyz, target.mask, cfg, cov=target.cov if is_vgicp else None)
+        timing.count("voxel_maps", n=target.xyz.shape[0])
+        if graphs is None and not eager and dev.type == "cuda":
+            graphs = _eager_voxel_graphs()
+        if is_vgicp:
             return vgicp.register_vgicp(source, vm, guess, cfg, graphs=graphs)
         return vgicp.register_ndt(source.xyz, source.mask, vm, guess, cfg,
                                   src_capacity=source.xyz.shape[-2], graphs=graphs)

@@ -1,29 +1,40 @@
 """Voxelized GICP (VGICP) and NDT: registration against a Gaussian voxel map
 (port of ``rivslam_tpu/frontend/vgicp.py``).
 
-Capability parity with FastVGICP / FastVGICPCuda and NDTCuda (fast_vgicp.hpp
-and impl, fast_vgicp_voxel.hpp:57-130, ndt/ndt_cuda.hpp): the target becomes
-a map of per-voxel (mean, covariance, count) in additive mode, built by one
-sort and segment sums (``ops/voxel.gaussian_voxel_map``); each source point
-is matched to nearby voxels and contributes a point-to-distribution
-Mahalanobis term.
+The two voxel maps (``ops/voxel.gaussian_voxel_map``, one sort and segment
+sums):
+- VGICP's, fast_gicp's ``FastVGICP`` with its default
+  ``AdditiveGaussianVoxel`` (fast_vgicp_voxel.hpp; Koide et al., "Voxelized
+  GICP for Fast and Accurate 3D Point Cloud Registration", ICRA 2021): a
+  voxel's mean is its points' mean and its covariance the average of their
+  own covariances, which ``apdgicp.prepare`` has already regularized, so the
+  voxel is not regularized again. Each source point a_i in voxel v adds
+  w_v d^T (C_v + R C_i R^T)^-1 d, d = mu_v - T a_i, with w_v = sqrt(N_v):
+  ``FastVGICP::linearize`` and ``compute_error`` weight H, b and the error
+  by ``sqrt(num_points)``, where the paper's objective weights by N_v; this
+  port follows fast_gicp, the code RIV-SLAM vendors;
+- NDT's (NDTCuda, Magnusson's normal distributions transform): a voxel's
+  covariance is the spread of its points, its eigenvalues clamped at 1e-3,
+  and every term has weight 1.
+The JAX package builds NDT's map for VGICP too and weights nothing; the
+port follows fast_gicp there (ROADMAP, F8).
 
 Neighbourhoods (``cfg.vgicp_neighborhood``, ``cfg.ndt_neighborhood``):
 - DIRECT1 / DIRECT7, the reference's voxel-hash lookup of the point's voxel
   (and its 6 face neighbours), as the reference's packed-key match: voxel
   coords pack into one order-preserving int32 key, a face neighbour's key is
   the centre key plus a constant, so one [N, V] int difference matrix
-  answers every neighbourhood and each neighbour's (mean, covariance) is a
-  one-hot matmul against the [V, 13] payload;
+  answers every neighbourhood and each neighbour's (mean, covariance,
+  count) is a one-hot matmul against the [V, 13] payload;
 - KDTREE, the nearest 7 voxel centres by an [N, V] distance matrix and a
   stable top-k.
 
 Everything is batched over a leading problem dim B. The LM driver is
 ``apdgicp``'s: each method is a model for ``apdgicp.run_registration``
-(``MODELS``), so ``apdgicp.GraphedRegistration`` replays it as CUDA graphs
-on the card, as it does the GICP family. The voxel map is built once per
-registration, outside the graphs. The reference's VGICP/NDT driver runs LM
-whatever ``cfg.optimizer`` says; so does this one.
+(``MODELS``, ``NDT_MODELS``), so ``apdgicp.GraphedRegistration`` replays it
+as CUDA graphs on the card, as it does the GICP family. The voxel map is
+built once per registration, outside the graphs. The reference's VGICP/NDT
+registration runs LM whatever ``cfg.optimizer`` says; so does this one.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ import torch
 
 from rivslam_tpu_torch.core import lie
 from rivslam_tpu_torch.core.config import RegistrationConfig
+from rivslam_tpu_torch.eval import timing
 from rivslam_tpu_torch.frontend import apdgicp
 from rivslam_tpu_torch.ops import voxel as voxel_mod
 
@@ -42,7 +54,7 @@ from rivslam_tpu_torch.ops import voxel as voxel_mod
 class VoxelMap:
     coords: torch.Tensor  # [B, V, 3] int32 voxel coords
     mean: torch.Tensor  # [B, V, 3]
-    cov: torch.Tensor  # [B, V, 3, 3] regularized
+    cov: torch.Tensor  # [B, V, 3, 3]
     count: torch.Tensor  # [B, V]
 
     @property
@@ -51,16 +63,19 @@ class VoxelMap:
 
 
 def build_voxel_map(xyz: torch.Tensor, mask: torch.Tensor, cfg: RegistrationConfig,
-                    capacity: int = 2048) -> VoxelMap:
-    """The Gaussian voxel map of a cloud ([B, N] or [N]), its covariances
-    regularized as the point covariances (eigenvalues clamped at 1e-3)."""
-    coords, mean, cov, cnt = voxel_mod.gaussian_voxel_map(
-        torch.where(mask[..., None], xyz, 1e6), mask, cfg.voxel_resolution, capacity
+                    capacity: int = 2048, cov: torch.Tensor | None = None) -> VoxelMap:
+    """The Gaussian voxel map of a cloud ([B, N] or [N]). With the cloud's
+    point covariances ``cov`` (VGICP), fast_gicp's additive map: each
+    voxel's covariance the average of its points' (already regularized)
+    covariances, not regularized again. Without (NDT), each voxel's point
+    spread, its eigenvalues clamped at 1e-3."""
+    coords, mean, vcov, cnt = voxel_mod.gaussian_voxel_map(
+        torch.where(mask[..., None], xyz, 1e6), mask, cfg.voxel_resolution, capacity, cov
     )
-    vals, vecs = torch.linalg.eigh(cov + 1e-9 * torch.eye(3, dtype=xyz.dtype, device=xyz.device))
-    new_vals = torch.clamp_min(vals, 1e-3)
-    cov_reg = torch.einsum("...ij,...j,...kj->...ik", vecs, new_vals, vecs)
-    return VoxelMap(coords=coords, mean=mean, cov=cov_reg, count=cnt)
+    if cov is None:
+        vals, vecs = torch.linalg.eigh(vcov + 1e-9 * torch.eye(3, dtype=xyz.dtype, device=xyz.device))
+        vcov = torch.einsum("...ij,...j,...kj->...ik", vecs, torch.clamp_min(vals, 1e-3), vecs)
+    return VoxelMap(coords=coords, mean=mean, cov=vcov, count=cnt)
 
 
 # the DIRECT7 neighbourhood: the point's own voxel and its 6 face neighbours
@@ -68,8 +83,14 @@ def build_voxel_map(xyz: torch.Tensor, mask: torch.Tensor, cfg: RegistrationConf
 _DIRECT_DELTAS = (0, 1 << 20, -(1 << 20), 1 << 10, -(1 << 10), 1, -1)
 
 
-def _mahalanobis_from(cov_B, cov_A_rot, corr):
+def _mahalanobis_from(cov_B, cov_A_rot, corr, count_B=None):
+    """(C_B + R C_A R^T)^-1 of each correspondence, 0 where there is none;
+    with the voxels' point counts ``count_B``, times sqrt(N_v) (VGICP's
+    weight, fast_gicp ``FastVGICP::linearize``: w = sqrt(num_points) on H,
+    b and the error), so that every sum over the terms carries it."""
     mah = apdgicp._inv3(cov_B + cov_A_rot[:, :, None])
+    if count_B is not None:
+        mah = mah * torch.sqrt(count_B)[..., None, None]
     return torch.where(corr[..., None, None], mah, 0.0)
 
 
@@ -78,7 +99,8 @@ def _rotated_src_cov(T, src_cov):
     return R @ src_cov @ R.transpose(-1, -2)  # [B, N, 3, 3]
 
 
-def _voxel_correspondences_nearest(T, src_xyz, src_mask, src_cov, vm: VoxelMap, cfg, k_neighbors=7):
+def _voxel_correspondences_nearest(T, src_xyz, src_mask, src_cov, vm: VoxelMap, cfg, weighted: bool,
+                                   k_neighbors=7):
     """The nearest voxel centres (the KDTREE search option,
     registrations.cpp:126): [N, V] distances, the k smallest with ties to
     the lower index (the reference's ``lax.top_k``)."""
@@ -97,15 +119,16 @@ def _voxel_correspondences_nearest(T, src_xyz, src_mask, src_cov, vm: VoxelMap, 
     corr = (-neg < radius * radius) & src_mask[..., None] & (count > 0)
     mean_B = torch.take_along_dim(vm.mean, flat[..., None], dim=1).reshape(B, N, -1, 3)
     cov_B = torch.take_along_dim(vm.cov, flat[..., None, None], dim=1).reshape(B, N, -1, 3, 3)
-    return mean_B, corr, _mahalanobis_from(cov_B, _rotated_src_cov(T, src_cov), corr)
+    return mean_B, corr, _mahalanobis_from(cov_B, _rotated_src_cov(T, src_cov), corr, count if weighted else None)
 
 
-def _voxel_correspondences_direct(T, src_xyz, src_mask, src_cov, vm: VoxelMap, cfg, n_offsets: int):
-    """DIRECT7 / DIRECT1 (fast_vgicp_voxel.hpp:57-130,
-    find_voxel_correspondences.cu:114) as the reference's packed-key match:
+def _voxel_correspondences_direct(T, src_xyz, src_mask, src_cov, vm: VoxelMap, cfg, n_offsets: int,
+                                  weighted: bool):
+    """DIRECT7 / DIRECT1 (fast_vgicp_voxel.hpp's neighbour offsets,
+    find_voxel_correspondences.cu) as the reference's packed-key match:
     ``diff == delta_k`` of the [N, V] matrix ``table - key`` is the exact
     one-hot of neighbour k, and its matmul against the [V, 13] payload
-    (mean, covariance, validity) gathers that voxel. Points within one cell
+    (mean, covariance, point count) gathers that voxel. Points within one cell
     of the packing bound (+-511 voxels) get no correspondence, so every
     neighbour delta is carry-free."""
     pt = lie.transform_points(T, src_xyz)
@@ -120,29 +143,35 @@ def _voxel_correspondences_direct(T, src_xyz, src_mask, src_cov, vm: VoxelMap, c
     miss = voxel_mod._PACK_MISS
     qk0 = torch.where(in_rng & src_mask, voxel_mod.pack_voxel_coords(c), miss)  # [B, N]
     diff = table[:, None, :] - qk0[:, :, None]  # [B, N, V] int32
-    payload = torch.cat([vm.mean, vm.cov.reshape(B, V, 9), torch.ones((B, V, 1), dtype=dtype, device=pt.device)],
-                        dim=-1)
+    # a one-hot row picks one count exactly, so the count is also the validity
+    payload = torch.cat([vm.mean, vm.cov.reshape(B, V, 9), vm.count[..., None].to(dtype)], dim=-1)
     payload = torch.where(vm.valid[..., None], payload, 0.0)  # [B, V, 13]
     gathered = torch.stack([(diff == d).to(dtype) @ payload for d in _DIRECT_DELTAS[:n_offsets]], dim=2)
-    corr = (gathered[..., 12] > 0.5) & (qk0 != miss)[..., None]  # [B, N, k]
+    count_B = gathered[..., 12]
+    corr = (count_B > 0.5) & (qk0 != miss)[..., None]  # [B, N, k]
     mean_B = gathered[..., :3]
     cov_B = gathered[..., 3:12].reshape(B, pt.shape[1], n_offsets, 3, 3)
-    return mean_B, corr, _mahalanobis_from(cov_B, _rotated_src_cov(T, src_cov), corr)
+    return mean_B, corr, _mahalanobis_from(cov_B, _rotated_src_cov(T, src_cov), corr,
+                                           count_B if weighted else None)
 
 
-def _voxel_correspondences(T, src_xyz, src_mask, src_cov, vm: VoxelMap, cfg, method: str):
-    """The neighbourhood dispatch (fast_vgicp.hpp:74, registrations.cpp:117-131)."""
-    if method == "DIRECT7":
-        return _voxel_correspondences_direct(T, src_xyz, src_mask, src_cov, vm, cfg, 7)
-    if method == "DIRECT1":
-        return _voxel_correspondences_direct(T, src_xyz, src_mask, src_cov, vm, cfg, 1)
-    if method == "KDTREE":
-        return _voxel_correspondences_nearest(T, src_xyz, src_mask, src_cov, vm, cfg)
-    raise ValueError(f"unknown voxel neighborhood {method!r}")
+def _voxel_correspondences(T, src_xyz, src_mask, src_cov, vm: VoxelMap, cfg, method: str, weighted: bool = False):
+    """The neighbourhood dispatch (fast_vgicp.hpp:74, registrations.cpp:117-131):
+    (voxel means [B, N, k, 3], correspondence flags [B, N, k], the
+    Mahalanobis weights [B, N, k, 3, 3], times sqrt(N_v) when ``weighted``)."""
+    with timing.span("vgicp.correspondences"):
+        if method == "DIRECT7":
+            return _voxel_correspondences_direct(T, src_xyz, src_mask, src_cov, vm, cfg, 7, weighted)
+        if method == "DIRECT1":
+            return _voxel_correspondences_direct(T, src_xyz, src_mask, src_cov, vm, cfg, 1, weighted)
+        if method == "KDTREE":
+            return _voxel_correspondences_nearest(T, src_xyz, src_mask, src_cov, vm, cfg, weighted)
+        raise ValueError(f"unknown voxel neighborhood {method!r}")
 
 
 def _linearize_vgicp(T, src_xyz, mean_B, corr, mah):
-    """H, b, error over the fixed voxel correspondences."""
+    """H, b, error over the fixed voxel correspondences (the weights ride
+    in ``mah``)."""
     pt = lie.transform_points(T, src_xyz)  # [B, N, 3]
     e = mean_B - pt[:, :, None, :]  # [B, N, k, 3]
     me = torch.einsum("bnkij,bnkj->bnki", mah, e)
@@ -161,14 +190,14 @@ def _error_vgicp(T, src_xyz, mean_B, corr, mah):
     return torch.sum(torch.where(corr, quad, 0.0), dim=(1, 2))
 
 
-def _make_model(neighborhood: str):
+def _make_model(neighborhood: str, weighted: bool):
     def model(src_xyz, src_mask, src_cov, coords, mean, cov, count, cfg: RegistrationConfig):
-        """``apdgicp.run_registration``'s functions for VGICP / NDT over the
-        source and the target's voxel map."""
+        """``apdgicp.run_registration``'s functions for VGICP (``weighted``)
+        / NDT over the source and the target's voxel map."""
         vm = VoxelMap(coords=coords, mean=mean, cov=cov, count=count)
 
         def correspondences(T):
-            return _voxel_correspondences(T, src_xyz, src_mask, src_cov, vm, cfg, neighborhood)
+            return _voxel_correspondences(T, src_xyz, src_mask, src_cov, vm, cfg, neighborhood, weighted)
 
         def linearize_at(T):
             mean_B, corr, mah = c = correspondences(T)
@@ -188,28 +217,35 @@ def _make_model(neighborhood: str):
 
         return linearize_at, error_at, final_at
 
-    model.__name__ = model.__qualname__ = f"voxel_model_{neighborhood}"
+    kind = "vgicp" if weighted else "ndt"
+    model.__name__ = model.__qualname__ = f"{kind}_model_{neighborhood}"
     return model
 
 
-# one model per neighbourhood: the model is part of a registration graph's key
-MODELS = {nb: _make_model(nb) for nb in ("DIRECT1", "DIRECT7", "KDTREE")}
+# one model per neighbourhood and weighting: the model is part of a
+# registration graph's key. VGICP's weigh each term by sqrt(N_v), NDT's by 1
+_NEIGHBORHOODS = ("DIRECT1", "DIRECT7", "KDTREE")
+MODELS = {nb: _make_model(nb, True) for nb in _NEIGHBORHOODS}
+NDT_MODELS = {nb: _make_model(nb, False) for nb in _NEIGHBORHOODS}
 
 
 def register_vgicp(src: apdgicp.PreparedCloud, vm: VoxelMap, guess: torch.Tensor, cfg: RegistrationConfig,
                    neighborhood: str | None = None,
-                   graphs: apdgicp.GraphedRegistration | None = None) -> apdgicp.RegistrationResult:
+                   graphs: apdgicp.GraphedRegistration | None = None,
+                   weighted: bool = True) -> apdgicp.RegistrationResult:
     """LsqRegistration's LM over voxel correspondences, B problems: src
     fields [B, N, ...], the voxel map [B, V, ...], guess [B, 4, 4];
-    ``graphs`` as in ``apdgicp.run_registration``."""
+    ``graphs`` as in ``apdgicp.run_registration``. ``weighted``: VGICP's
+    sqrt(N_v) on every term (``MODELS``); NDT passes False (``NDT_MODELS``)."""
     nb = neighborhood or cfg.vgicp_neighborhood
-    if nb not in MODELS:
+    models = MODELS if weighted else NDT_MODELS
+    if nb not in models:
         raise ValueError(f"unknown voxel neighborhood {nb!r}")
     if cfg.optimizer != "LM":
         cfg = dataclasses.replace(cfg, optimizer="LM")
     problem = (src.xyz.contiguous(), src.mask.contiguous(), src.cov.contiguous(), vm.coords.contiguous(),
                vm.mean.contiguous(), vm.cov.contiguous(), vm.count.contiguous())
-    return apdgicp.run_registration(MODELS[nb], problem, guess.to(src.xyz.dtype), cfg, graphs)
+    return apdgicp.run_registration(models[nb], problem, guess.to(src.xyz.dtype), cfg, graphs)
 
 
 def register_ndt(src_xyz: torch.Tensor, src_mask: torch.Tensor, vm: VoxelMap, guess: torch.Tensor,
@@ -230,4 +266,4 @@ def register_ndt(src_xyz: torch.Tensor, src_mask: torch.Tensor, vm: VoxelMap, gu
         src = apdgicp.PreparedCloud(xyz=svm.mean, mask=svm.valid, cov=svm.cov)
     else:
         raise ValueError(mode)
-    return register_vgicp(src, vm, guess, cfg, neighborhood=cfg.ndt_neighborhood, graphs=graphs)
+    return register_vgicp(src, vm, guess, cfg, neighborhood=cfg.ndt_neighborhood, graphs=graphs, weighted=False)

@@ -1,5 +1,5 @@
 """Voxel grids with static shapes (port of ``rivslam_tpu/ops/voxel.py``):
-the downsample, and the Gaussian voxel map of VGICP and NDT.
+the downsample, and the Gaussian voxel maps of VGICP and NDT.
 
 Points are quantised to integer voxel coords, sorted lexicographically by
 one stable sort on a packed int64 key (the reference's three-key stable
@@ -82,11 +82,21 @@ def voxel_downsample(cloud: RadarCloud, resolution: float, out_capacity: int) ->
 
 
 def gaussian_voxel_map(
-    xyz: torch.Tensor, mask: torch.Tensor, resolution: float, capacity: int
+    xyz: torch.Tensor, mask: torch.Tensor, resolution: float, capacity: int,
+    point_cov: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per-voxel (mean, covariance, count): FastVGICP's additive voxel map
-    (fast_vgicp_voxel.hpp:57-130) by one sort and segment sums, over a
-    leading batch dim or none (xyz [..., N, 3], mask [..., N]).
+    """Per-voxel (mean, covariance, count) by one sort and segment sums,
+    over a leading batch dim or none (xyz [..., N, 3], mask [..., N]).
+
+    Without ``point_cov`` a voxel's covariance is the spread of its points
+    about their mean, NDT's voxel (Magnusson's normal distributions
+    transform). With ``point_cov`` [..., N, 3, 3], the points' own
+    covariances, it is their average: fast_gicp's ``AdditiveGaussianVoxel``
+    (fast_vgicp_voxel.hpp), whose ``append`` adds each point and its
+    covariance and whose ``finalize`` divides both sums by the count,
+    mu_v = sum_j b_j / N_v and C_v = sum_j C_j / N_v (Koide et al.,
+    "Voxelized GICP for Fast and Accurate 3D Point Cloud Registration",
+    ICRA 2021, Sec. III).
 
     Returns (coords [..., V, 3] int32, means [..., V, 3], covs [..., V, 3, 3],
     counts [..., V]) with V = ``capacity``: occupied voxels first, in
@@ -94,7 +104,8 @@ def gaussian_voxel_map(
     coords -2^20, zero means, covariances and counts; voxels beyond the
     capacity are dropped."""
     if xyz.ndim == 2:
-        return tuple(t[0] for t in gaussian_voxel_map(xyz[None], mask[None], resolution, capacity))
+        cov1 = None if point_cov is None else point_cov[None]
+        return tuple(t[0] for t in gaussian_voxel_map(xyz[None], mask[None], resolution, capacity, cov1))
     B = xyz.shape[0]
     dt = xyz.dtype
     keys = _packed_keys(xyz, mask, resolution)
@@ -118,8 +129,12 @@ def gaussian_voxel_map(
     cnt = seg_sum(m)
     safe = torch.clamp_min(cnt, 1.0)
     mean = seg_sum(p) / safe[..., None]
-    outer = p[..., :, None] * p[..., None, :] * m[..., None, None]
-    cov = seg_sum(outer) / safe[..., None, None] - mean[..., :, None] * mean[..., None, :]
+    if point_cov is None:
+        outer = p[..., :, None] * p[..., None, :] * m[..., None, None]
+        cov = seg_sum(outer) / safe[..., None, None] - mean[..., :, None] * mean[..., None, :]
+    else:
+        pc = torch.take_along_dim(point_cov, order[..., None, None], dim=1)
+        cov = seg_sum(torch.where(smask[..., None, None], pc, 0.0)) / safe[..., None, None]
     # each voxel's integer coords, from its first point
     c = torch.floor(p / resolution).to(torch.int32)
     coords = torch.full((B, capacity + 1, 3), -_COORD_OFFSET, dtype=torch.int32, device=xyz.device)

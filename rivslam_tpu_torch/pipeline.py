@@ -521,11 +521,20 @@ class Engine:
 
         Returns numpy arrays: odom [F,4,4], pose [F,4,4] (the window
         backend's estimate), is_keyframe [F], converged [F], chi2 [F],
-        ego_vel [F,3], solver_iterations [F]."""
-        n = np.asarray(stacked["xyz"]).shape[-2]
-        self.key, keys = prng.split_chain(self.key, len(stacked["stamps"]))
-        draws = self._draw_sequence(keys, n, self._uniforms_fn)
-        return self._replay(self._prep_stacked(stacked), draws)
+        ego_vel [F,3], solver_iterations [F].
+
+        Spans: ``engine.replay`` around the call, and inside it
+        ``replay.draws``, ``replay.upload``, ``replay.frame`` (each frame's
+        step) and ``replay.read`` (the outputs to the host)."""
+        span = self.timers.span
+        with span("engine.replay"):
+            n = np.asarray(stacked["xyz"]).shape[-2]
+            self.key, keys = prng.split_chain(self.key, len(stacked["stamps"]))
+            with span("replay.draws"):
+                draws = self._draw_sequence(keys, n, self._uniforms_fn)
+            with span("replay.upload"):
+                inputs = self._prep_stacked(stacked)
+            return self._replay(inputs, draws)
 
     def replay_fleet(self, stacked: dict, mesh=None, axis: str = "data") -> dict:
         """B independent sequences (every array of a ``stack_sequence`` dict
@@ -609,25 +618,28 @@ class Engine:
         iterations = np.zeros(F, np.int32)  # counted on the host by the window solve
         saved = self.state
         self.state = EngineState(floor_prev=torch.tensor([0.0, 0.0, 1.0, 0.0], dtype=dt, device=dev))
+        span = self.timers.span
         try:
             for i in range(F):
-                cloud = RadarCloud(xyz=clouds.xyz[i], doppler=clouds.doppler[i],
-                                   intensity=clouds.intensity[i], mask=clouds.mask[i])
-                _, ego, _, _, oout, odom_pose, bout = self._frame_step(
-                    cloud, ang_vel[i], stamps[i], dts[i], acc[i], gyr[i], imask[i],
-                    draws=(draws[0][i], draws[1][i]),
-                )
-                out["odom"][i] = odom_pose
-                out["pose"][i] = bout.pose
-                out["chi2"][i] = bout.chi2
-                out["ego_vel"][i] = ego.v
-                iterations[i] = bout.iterations
-                if oout is not None:  # frame 0 is a converged keyframe
-                    out["is_keyframe"][i] = oout.is_keyframe
-                    out["converged"][i] = oout.reg.converged
+                with span("replay.frame"):
+                    cloud = RadarCloud(xyz=clouds.xyz[i], doppler=clouds.doppler[i],
+                                       intensity=clouds.intensity[i], mask=clouds.mask[i])
+                    _, ego, _, _, oout, odom_pose, bout = self._frame_step(
+                        cloud, ang_vel[i], stamps[i], dts[i], acc[i], gyr[i], imask[i],
+                        draws=(draws[0][i], draws[1][i]),
+                    )
+                    out["odom"][i] = odom_pose
+                    out["pose"][i] = bout.pose
+                    out["chi2"][i] = bout.chi2
+                    out["ego_vel"][i] = ego.v
+                    iterations[i] = bout.iterations
+                    if oout is not None:  # frame 0 is a converged keyframe
+                        out["is_keyframe"][i] = oout.is_keyframe
+                        out["converged"][i] = oout.reg.converged
         finally:
             self.state = saved
-        res = {k: v.cpu().numpy() for k, v in out.items()}
+        with span("replay.read"):
+            res = {k: v.cpu().numpy() for k, v in out.items()}
         res["solver_iterations"] = iterations
         return res
 

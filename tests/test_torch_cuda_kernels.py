@@ -846,7 +846,7 @@ def test_graphed_registration_equals_its_eager_run(dev, kw):
         graphed = [k.launches - b for k, b in zip(counted, before)]
         before = [k.launches for k in counted]
         with cuda_graph.cusolver():
-            want = apdgicp.register_dispatch(src, tgt, guess, cfg, device=dev)
+            want = apdgicp.register_dispatch(src, tgt, guess, cfg, device=dev, eager=True)
         torch.cuda.synchronize()
         eager = [k.launches - b for k, b in zip(counted, before)]
         for field in dataclasses.fields(want):

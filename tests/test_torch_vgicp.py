@@ -1,9 +1,17 @@
-"""The port's VGICP / NDT registration family against the JAX package on
-the CPU: the Gaussian voxel map (``ops/voxel.gaussian_voxel_map``), the
-DIRECT1 / DIRECT7 and KDTREE voxel correspondences, the tiled nearest
-neighbour (``ops/knn.nearest_neighbor_tiled``), ``register_vgicp`` and
-``register_ndt`` (P2D and D2D) through ``register_dispatch``, and the
-Engine with ``method="VGICP"`` and ``method="NDT_OMP"``.
+"""The port's VGICP / NDT registration family on the CPU.
+
+VGICP is held to the plain float64 reference ``benchmark/reference/vgicp.py``
+(fast_gicp's ``FastVGICP``: the additive voxel map of the target's point
+covariances, each term weighted by sqrt(N_v)): the voxel map, H, b and the
+error at a pose, a registration's answer through ``register_dispatch`` and
+the Engine's odometry, and the point-spread voxel, which fails them. The
+JAX package builds NDT's voxel for VGICP and weights nothing (ROADMAP, F8),
+so it holds only what VGICP and NDT still share: NDT's point-spread map
+(``ops/voxel.gaussian_voxel_map``), the DIRECT1 / DIRECT7 and KDTREE voxel
+correspondences, the unweighted LM from one given voxel map, the tiled
+nearest neighbour (``ops/knn.nearest_neighbor_tiled``), ``register_ndt``
+(P2D and D2D) through ``register_dispatch``, and the Engine with
+``method="NDT_OMP"``.
 
 The registration scene is the reference's tests/test_vgicp.py scene at 512
 points: one simulated world, the target at 2 m height and the source 0.36 m
@@ -15,13 +23,18 @@ voxel runs: the "cp" validation course (120 frames at capacity 1024,
 float32 on the CPU, engine seed 0) under the validation harness's
 configuration with ``method="VGICP"`` and ``method="NDT_OMP"``:
 full-trajectory ATE (loop-corrected and the window backend's own),
-keyframes and loops closed. chip_smoke.py holds the port's card runs to them.
-The runs are also written frame by frame to ``tests/torch_ref/cp_f32.npz``
-(as "vgicp0" and "ndt0"; tests/test_torch_engine_loop.py's script mode).
+keyframes and loops closed. chip_smoke.py holds the port's NDT_OMP card run
+to them; its VGICP card run it holds to the port's own CPU run
+(``PYTHONPATH=.:tests python tests/test_torch_engine_loop.py --port vgicp0``),
+since the JAX engine's VGICP is not fast_gicp's. The runs are also written
+frame by frame to ``tests/torch_ref/cp_f32.npz`` (as "vgicp0" and "ndt0";
+tests/test_torch_engine_loop.py's script mode).
 """
 
 import dataclasses
 import json
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -41,11 +54,17 @@ from rivslam_tpu.io import synthetic as ref_syn
 from rivslam_tpu.ops import knn as ref_knn
 from rivslam_tpu.ops import voxel as ref_voxel
 from rivslam_tpu_torch import pipeline
+from rivslam_tpu_torch.core import lie
 from rivslam_tpu_torch.core.config import RegistrationConfig
 from rivslam_tpu_torch.eval import validation
 from rivslam_tpu_torch.frontend import apdgicp, vgicp
 from rivslam_tpu_torch.io import datasets, synthetic
 from rivslam_tpu_torch.ops import knn, nn_argmin, voxel
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+from benchmark.reference import vgicp as plain  # noqa: E402
 
 CPU = "cpu"
 DTYPES = {"f64": (torch.float64, jnp.float64), "f32": (torch.float32, jnp.float32)}
@@ -175,15 +194,34 @@ REG_CASES = {
     # the reference's tests/test_vgicp.py)
     "NDT_OMP": dict(method="NDT_OMP", transformation_epsilon=1e-2),
 }
+# a reported error against the plain reference's error at the answer
+ERROR_RTOL = {"f64": 1e-9, "f32": 1e-4}
+
+
+def _hold_to_plain(source, target, res, cfg, kind):
+    """A VGICP answer (DIRECT1) against ``benchmark/reference/vgicp.py`` in
+    float64 on the registration's own prepared clouds: its reported error
+    is the error at its answer, and one Gauss-Newton step from its answer
+    is under the configuration's stopping rule."""
+    b = (lambda t: t[None]) if res.T.ndim == 2 else (lambda t: t)
+    problem = plain.Problem(*(b(getattr(c, f)) for c in (source, target) for f in ("xyz", "mask", "cov")), cfg)
+    T = b(res.T).double()
+    np.testing.assert_allclose(b(res.error).double().numpy(), problem.error(T).numpy(), rtol=ERROR_RTOL[kind])
+    steps = problem.step_units(T)
+    assert bool((steps < 1.0).all()), steps
 
 
 # KDTREE's nearest-7 cut is the one float32 case that flips voxels: held in float64
 @pytest.mark.parametrize("case,kind", [(c, k) for c in REG_CASES for k in ("f64", "f32")
                                        if (c, k) != ("FAST_VGICP_CUDA KDTREE", "f32")])
 def test_register_dispatch_matches_reference(scene, case, kind):
-    """VGICP and NDT (P2D) through the method factory: the same iterations,
-    correspondence counts and convergence; poses within POSE_ATOL_F64 in
-    float64, in float32 within the reference's own float32 band."""
+    """VGICP and NDT (P2D) through the method factory. NDT against the JAX
+    package: the same iterations, correspondence counts and convergence;
+    poses within POSE_ATOL_F64 in float64, in float32 within the
+    reference's own float32 band. VGICP (DIRECT1) against the plain
+    reference (``_hold_to_plain``). The KDTREE search, which the plain
+    reference does not model, holds to JAX over what the two still share:
+    the unweighted LM from JAX's own voxel map, as NDT runs it."""
     (sx, sm, tx, tm), T_rel = scene
     kw = dict(REG_CASES[case], transformation_epsilon=REG_CASES[case].get("transformation_epsilon", 5e-4))
     rcfg, cfg = RefRegistrationConfig(**kw), RegistrationConfig(**kw)
@@ -198,20 +236,146 @@ def test_register_dispatch_matches_reference(scene, case, kind):
                                         apdgicp.prepare(ptx, ptm, cfg, device=CPU), eye[1], cfg, device=CPU)
         return ref, got
 
-    ref, got = run(kind)
-    assert bool(got.converged) == bool(ref.converged)
-    assert int(got.iterations) == int(ref.iterations)
-    assert int(got.num_correspondences) == int(ref.num_correspondences) > 100
-    if kind == "f64":
-        np.testing.assert_allclose(got.T.numpy(), np.asarray(ref.T), rtol=0, atol=POSE_ATOL_F64)
-        np.testing.assert_allclose(float(got.fitness), float(ref.fitness), rtol=1e-9)
+    if case == "VGICP":
+        (psx, ptx), (psm, ptm) = (_both(a, kind)[1] for a in (sx, tx)), (torch.as_tensor(sm), torch.as_tensor(tm))
+        source, target = (apdgicp.prepare(x, m, cfg, device=CPU) for x, m in ((psx, psm), (ptx, ptm)))
+        got = apdgicp.register_dispatch(source, target, torch.eye(4, dtype=psx.dtype), cfg, device=CPU)
+        assert bool(got.converged) and int(got.num_correspondences) > 100
+        _hold_to_plain(source, target, got, cfg, kind)
+    elif case == "FAST_VGICP_CUDA KDTREE":
+        src_r = ref_apdgicp.prepare(jnp.asarray(sx), jnp.asarray(sm), rcfg)
+        vm_r = ref_vgicp.build_voxel_map(jnp.asarray(tx), jnp.asarray(tm), rcfg)
+        ref = ref_vgicp.register_vgicp(src_r, vm_r, jnp.eye(4, dtype=jnp.float64), rcfg)
+        src = apdgicp.PreparedCloud(*(torch.as_tensor(np.asarray(a))[None] for a in (src_r.xyz, src_r.mask, src_r.cov)))
+        vm = vgicp.VoxelMap(*(torch.as_tensor(np.asarray(getattr(vm_r, f)))[None]
+                              for f in ("coords", "mean", "cov", "count")))
+        shared = apdgicp._map(vgicp.register_vgicp(src, vm, torch.eye(4, dtype=torch.float64)[None], cfg,
+                                                   weighted=False), lambda t: t[0])
+        assert (bool(shared.converged), int(shared.iterations), int(shared.num_correspondences)) == \
+            (bool(ref.converged), int(ref.iterations), int(ref.num_correspondences))
+        np.testing.assert_allclose(shared.T.numpy(), np.asarray(ref.T), rtol=0, atol=POSE_ATOL_F64)
+        got = run(kind)[1]  # the method itself, through the factory
+        assert bool(got.converged) and int(got.num_correspondences) > 100
     else:
-        ref64 = np.asarray(run("f64")[0].T)
-        err, ref_err = (np.abs(np.asarray(T, np.float64) - ref64).max() for T in (got.T.numpy(), ref.T))
-        assert err <= 2.0 * ref_err + 1e-5, (err, ref_err)
+        ref, got = run(kind)
+        assert bool(got.converged) == bool(ref.converged)
+        assert int(got.iterations) == int(ref.iterations)
+        assert int(got.num_correspondences) == int(ref.num_correspondences) > 100
+        if kind == "f64":
+            np.testing.assert_allclose(got.T.numpy(), np.asarray(ref.T), rtol=0, atol=POSE_ATOL_F64)
+            np.testing.assert_allclose(float(got.fitness), float(ref.fitness), rtol=1e-9)
+        else:
+            ref64 = np.asarray(run("f64")[0].T)
+            err, ref_err = (np.abs(np.asarray(T, np.float64) - ref64).max() for T in (got.T.numpy(), ref.T))
+            assert err <= 2.0 * ref_err + 1e-5, (err, ref_err)
     # and it aligns the scene (the reference's own bounds)
     delta = np.linalg.inv(got.T.numpy().astype(np.float64)) @ T_rel
     assert np.linalg.norm(delta[:3, 3]) < 0.6
+
+
+def _voxel_scene(seed: int = 5, n: int = 256):
+    """A sparse cloud as a radar scan voxelizes at 1 m: 60 distinct voxels
+    of 1-5 points each, padded to ``n``, and a random SPD covariance a
+    point (float64)."""
+    rng = np.random.default_rng(seed)
+    cells = rng.choice(12 * 12 * 4, 60, replace=False)
+    ijk = np.stack(np.unravel_index(cells, (12, 12, 4)), -1) - np.array([6, 6, 2])
+    counts = rng.integers(1, 6, 60)
+    pts = np.concatenate([c + rng.uniform(0.05, 0.95, (k, 3)) for c, k in zip(ijk, counts)])
+    xyz = np.zeros((n, 3))
+    xyz[:len(pts)] = pts
+    mask = np.arange(n) < len(pts)
+    A = rng.normal(size=(n, 3, 3)) * 0.3
+    cov = A @ A.transpose(0, 2, 1) + 1e-3 * np.eye(3)
+    return torch.as_tensor(xyz), torch.as_tensor(mask), torch.as_tensor(cov), counts
+
+
+@pytest.mark.parametrize("kind", ["f64", "f32"])
+def test_additive_voxel_map_equals_plain_reference(kind):
+    """VGICP's map from the points' covariances: every voxel's mean and
+    covariance, the average of its points' (not regularized again), and
+    its count, as the plain reference's (float64 to 1e-12; float32 to its
+    rounding); batched, each problem's map is the single problem's."""
+    xyz, mask, cov, counts = _voxel_scene()
+    dt = DTYPES[kind][0]
+    cfg = RegistrationConfig(method="FAST_VGICP")
+    vm = vgicp.build_voxel_map(xyz.to(dt), mask, cfg, capacity=256, cov=cov.to(dt))
+    assert int(vm.valid.sum()) == len(counts) and sorted(vm.count[vm.valid].tolist()) == sorted(counts.tolist())
+    ref = plain.build_map(xyz[None], mask[None], cov[None], cfg.voxel_resolution)
+    gaps = plain.map_gaps(vm.coords[None], vm.mean[None], vm.cov[None], vm.count[None], ref, cfg.voxel_resolution)
+    assert len(gaps) == len(counts) and float(gaps.max()) < (1e-12 if kind == "f64" else 1e-5), gaps.max()
+    two = vgicp.build_voxel_map(torch.stack([xyz, xyz.flip(0)]).to(dt), torch.stack([mask, mask.flip(0)]), cfg,
+                                capacity=256, cov=torch.stack([cov, cov.flip(0)]).to(dt))
+    for f in ("coords", "count"):
+        np.testing.assert_array_equal(getattr(two, f)[0].numpy(), getattr(vm, f).numpy())
+    np.testing.assert_allclose(two.cov[1][two.valid[1]].numpy(), vm.cov[vm.valid].numpy(), rtol=1e-5)
+
+
+def _pair(seed: int = 6):
+    """A source and a target cloud of ``_voxel_scene``'s kind, the source
+    moved 0.12 m and 1.1 deg off, each point's covariance from the port's
+    prepare (RBF, PLANE), float64."""
+    xyz, mask, _, _ = _voxel_scene(seed)
+    cfg = RegistrationConfig(method="FAST_VGICP", covariance_method="RBF", rbf_kernel_width=4.0)
+    T_rel = lie.se3_exp(torch.tensor([0.0, 0.01, 0.02, 0.1, -0.06, 0.02], dtype=torch.float64))
+    rng = np.random.default_rng(seed + 1)
+    src_xyz = (xyz - T_rel[:3, 3]) @ T_rel[:3, :3] + torch.as_tensor(rng.normal(size=xyz.shape) * 0.01)
+    src_xyz = torch.where(mask[:, None], src_xyz, 0.0)
+    source, target = (apdgicp.prepare(x[None], mask[None], cfg, device=CPU) for x in (src_xyz, xyz))
+    return source, target, cfg
+
+
+def test_weighted_normal_equations_equal_plain_reference():
+    """At a pose off the answer: the port's DIRECT1 correspondences over
+    the additive map give the plain reference's H, b and error, each term
+    weighted by sqrt(N_v)."""
+    source, target, cfg = _pair()
+    vm = vgicp.build_voxel_map(target.xyz, target.mask, cfg, capacity=256, cov=target.cov)
+    T = lie.se3_exp(torch.tensor([0.005, -0.01, 0.01, 0.05, 0.03, -0.02], dtype=torch.float64))[None]
+    linearize_at, error_at, final_at = vgicp.MODELS["DIRECT1"](
+        source.xyz, source.mask, source.cov, vm.coords, vm.mean, vm.cov, vm.count, cfg)
+    H, b, err, corr = linearize_at(T)
+    problem = plain.Problem(source.xyz, source.mask, source.cov, target.xyz, target.mask, target.cov, cfg)
+    H_r, b_r = problem.normal_equations(T)
+    assert int(corr[1].sum()) > 50
+    np.testing.assert_allclose(H.numpy(), H_r.numpy(), rtol=1e-10, atol=1e-9 * float(H_r.abs().max()))
+    np.testing.assert_allclose(b.numpy(), b_r.numpy(), rtol=1e-10, atol=1e-9 * float(b_r.abs().max()))
+    np.testing.assert_allclose(err.numpy(), problem.error(T).numpy(), rtol=1e-12)
+    np.testing.assert_allclose(error_at(T, corr).numpy(), err.numpy(), rtol=1e-12)
+    np.testing.assert_allclose(final_at(T)[0].numpy(), err.numpy(), rtol=1e-12)
+
+
+@pytest.mark.parametrize("kind", ["f64", "f32"])
+def test_registration_answer_holds_to_plain_reference(kind):
+    """FAST_VGICP through ``register_dispatch`` from the identity: it
+    converges, its reported error is the plain reference's error at its
+    answer, and one Gauss-Newton step from there is under the rule."""
+    source, target, cfg = _pair()
+    dt = DTYPES[kind][0]
+    source, target = (apdgicp._map(c, lambda t: t.to(dt) if t.is_floating_point() else t) for c in (source, target))
+    res = apdgicp.register_dispatch(source, target, torch.eye(4, dtype=dt)[None], cfg, device=CPU)
+    assert bool(res.converged.all()) and int(res.num_correspondences.min()) > 50
+    _hold_to_plain(source, target, res, cfg, kind)
+
+
+def test_point_spread_voxel_fails_the_plain_reference():
+    """NDT's voxel, the point spread with its eigenvalues clamped (what the
+    port built for VGICP before, and the JAX package still builds), is not
+    fast_gicp's: its covariances miss the plain reference's by far, and so
+    do the error and H at a pose; without sqrt(N_v) the error misses too."""
+    source, target, cfg = _pair()
+    T = torch.eye(4, dtype=torch.float64)[None]
+    problem = plain.Problem(source.xyz, source.mask, source.cov, target.xyz, target.mask, target.cov, cfg)
+    spread = vgicp.build_voxel_map(target.xyz, target.mask, cfg, capacity=256)
+    gaps = plain.map_gaps(spread.coords, spread.mean, spread.cov, spread.count, problem.map, cfg.voxel_resolution)
+    assert float(gaps.median()) > 0.1, gaps.median()
+    additive = vgicp.build_voxel_map(target.xyz, target.mask, cfg, capacity=256, cov=target.cov)
+    for vm, models in ((spread, vgicp.MODELS), (additive, vgicp.NDT_MODELS)):
+        H, _, err, _ = models["DIRECT1"](source.xyz, source.mask, source.cov, vm.coords, vm.mean, vm.cov, vm.count,
+                                         cfg)[0](T)
+        assert abs(float(err[0]) / float(problem.error(T)[0]) - 1.0) > 0.05
+    H_r, _ = problem.normal_equations(T)
+    assert float((H - H_r).abs().max()) > 0.05 * float(H_r.abs().max())
 
 
 @pytest.mark.parametrize("mode", ["P2D", "D2D"])
@@ -246,13 +410,41 @@ def _engine_cfg(mod, method):
 
 
 @pytest.mark.parametrize("method", ["VGICP", "NDT_OMP"])
-def test_engine_with_voxel_method_matches_reference(method):
+def test_engine_with_voxel_method_matches_reference(method, monkeypatch):
     """The Engine's odometry registering through VGICP / NDT over four
-    frames of the engine course, float64, the JAX engine's draws injected:
-    the same keyframes, poses within ENGINE_POSE_ATOL_F64."""
+    frames of the engine course, float64. NDT_OMP against the JAX engine,
+    its draws injected: the same keyframes, poses within
+    ENGINE_POSE_ATOL_F64. VGICP against the plain reference: each frame's
+    registration, as the odometry calls ``register_dispatch``, builds the
+    additive map from the target's covariances, and its answer holds
+    (``_hold_to_plain``)."""
     from rivslam_tpu import presets as ref_presets
     from rivslam_tpu_torch import presets
 
+    if method == "VGICP":
+        calls, maps = [], []
+        inner, inner_map = apdgicp.register_dispatch, vgicp.build_voxel_map
+
+        def register_dispatch(source, target, guess, cfg, *args, **kwargs):
+            res = inner(source, target, guess, cfg, *args, **kwargs)
+            if source.xyz.ndim == 3:  # the batched call does the work
+                calls.append((source, target, res, cfg))
+            return res
+
+        def build_voxel_map(*args, **kwargs):
+            maps.append(kwargs.get("cov"))
+            return inner_map(*args, **kwargs)
+
+        monkeypatch.setattr(apdgicp, "register_dispatch", register_dispatch)
+        monkeypatch.setattr(vgicp, "build_voxel_map", build_voxel_map)
+        eng = pipeline.Engine(_engine_cfg(presets, method), dtype=torch.float64, seed=ENGINE_SEED, device=CPU)
+        got = datasets.replay(eng, synthetic.simulate_sequence(**COURSE)[0], CAP, IMU_CAP)
+        assert len(calls) == COURSE["n_frames"] - 1 == len(maps)
+        for (source, target, res, cfg), cov in zip(calls, maps):
+            assert cov is target.cov
+            _hold_to_plain(source, target, res, cfg, "f64")
+        assert all(o["registration_ok"] for o in got)
+        return
     jax.config.update("jax_enable_x64", True)
     key, keys = jax.random.key(ENGINE_SEED), []
     for _ in range(COURSE["n_frames"]):
