@@ -42,7 +42,11 @@ debug mode it sets is process-wide), the tracer keeps:
   of the window solve (``solver/window.solve``),
   and ``lm_tries``, the window solve's lambda tries, by the span open
   around the call; ``voxel_maps``, the VGICP / NDT voxel maps built
-  (``apdgicp.register_dispatch``, one a problem).
+  (``apdgicp.register_dispatch``, one a problem); ``registrations_graphed``
+  and ``registrations_eager``, one a registration (``apdgicp.run_registration``,
+  which ``register_dispatch`` reaches for every method) by the path it took,
+  CUDA-graph replays or eager, by the span open around the call: their
+  ratio is how often the registration's graphs engage.
 """
 
 from __future__ import annotations
@@ -60,7 +64,7 @@ from torch.profiler import record_function
 SYNC_WARNING = "called a synchronizing CUDA operation"  # torch's sync debug warning
 OUTSIDE = "(outside any span)"  # a counter's key where no span is open
 COUNTERS = ("host_syncs", "graph_captures", "graph_capture_ms", "graph_replays", "lm_iterations", "lm_tries",
-            "voxel_maps")
+            "voxel_maps", "registrations_graphed", "registrations_eager")
 FRAME_SPAN = "engine.process_frame"
 CAPTURE_SPAN = "graph.capture"
 # records kept while on, the oldest dropped first: about two hours of the
@@ -316,8 +320,8 @@ class StageTimers:
         """Markdown: each span's host ms, calls and host syncs (counted
         under the innermost span) a frame; the ``top`` rows, the frame's
         top-level spans and the time outside them, add up to the frame.
-        Then the graph captures, replays, LM iterations, lambda tries and
-        voxel maps of those frames."""
+        Then the graph captures, replays, LM iterations, lambda tries,
+        voxel maps and registrations (graphed / eager) of those frames."""
         frames = self.frames() if frames is None else frames
         if not frames:
             return ""
@@ -358,6 +362,9 @@ class StageTimers:
             + (f" ({', '.join(f'{k}: {v / n:.2f}' for k, v in sorted(lm.items()))})" if lm else ""),
             f"window-solve lambda tries a frame: {sum(tries.values()) / n:.2f}",
             f"voxel maps a frame: {sum(counter('voxel_maps').values()) / n:.2f}",
+            "registrations a frame, graphed / eager: "
+            f"{sum(counter('registrations_graphed').values()) / n:.2f} / "
+            f"{sum(counter('registrations_eager').values()) / n:.2f}",
         ]
         return "\n".join(rows + lines)
 

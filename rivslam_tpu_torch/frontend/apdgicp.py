@@ -25,7 +25,8 @@ tries, ``lm_try``); a try or an iteration past done leaves that problem's
 state bitwise unchanged, so B problems give what B separate reference calls
 give. ``solve_lm`` runs the iterations eagerly and reads one flag from the
 device after each; ``GraphedRegistration`` replays them as CUDA graphs on
-the card (the Engine's odometry, and a voxel registration handed no graphs),
+the card (the Engine's odometry, and through ``register_dispatch`` every
+registration handed no graphs: the scan-match entry, loop verification),
 reading the same flag.
 
 VGICP and NDT (``frontend/vgicp.py``) are models for the same LM driver,
@@ -40,6 +41,7 @@ final statistics) are summed over the group (``dist/dist_gn.py``'s
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -52,7 +54,7 @@ from rivslam_tpu_torch.core.device import resolve
 from rivslam_tpu_torch.core.pointcloud import SENTINEL
 from rivslam_tpu_torch.dist.mesh import all_sum
 from rivslam_tpu_torch.eval import timing
-from rivslam_tpu_torch.ops import eig3, knn, nn_corr
+from rivslam_tpu_torch.ops import cuda_build, eig3, knn, nn_corr
 
 _FAST_METHODS = ("FAST_APDGICP", "FAST_GICP", "GICP", "GICP_OMP")
 _VGICP_METHODS = ("VGICP", "FAST_VGICP", "FAST_VGICP_CUDA")
@@ -242,6 +244,19 @@ def solve_lm(T0: torch.Tensor, cfg: RegistrationConfig, linearize_at, error_at, 
     return T, Hf, converged, it
 
 
+def _registration_eagerly(model, problem: tuple, T0: torch.Tensor, cfg: RegistrationConfig,
+                          group=None) -> tuple:
+    """``solve_lm`` and the final step of one registration, eagerly:
+    (T, H, converged, iterations, error, correspondences, fitness). Counts
+    one ``registrations_eager`` by the span open around the call."""
+    linearize_at, error_at, final_at = (
+        model(*problem, cfg) if group is None else model(*problem, cfg, group=group))
+    T, Hf, converged, it = solve_lm(T0, cfg, linearize_at, error_at, group)
+    out = (T, Hf, converged, it, *final_at(T))
+    timing.count("registrations_eager")
+    return out
+
+
 def run_registration(model, problem: tuple, T0: torch.Tensor, cfg: RegistrationConfig,
                      graphs: GraphedRegistration | None = None, group=None) -> RegistrationResult:
     """``solve_lm`` and the final correspondence statistics of one
@@ -249,20 +264,19 @@ def run_registration(model, problem: tuple, T0: torch.Tensor, cfg: RegistrationC
     final_at)`` builds the path's functions over its fixed inputs
     ``problem`` (tensors); ``final_at(T) -> (error, correspondences,
     fitness)``. With ``graphs`` (on the card) the iteration and the final
-    step replay CUDA graphs; without, they run eagerly, as on the CPU.
-    With a process ``group`` (the model-parallel registration: each rank
-    holds part of the source points) the sums are taken over the group and
-    the model is built as ``model(*problem, cfg, group=group)``; that runs
-    eagerly."""
+    step replay CUDA graphs, once ``graphs`` has captured the key; without,
+    they run eagerly, as on the CPU. With a process ``group`` (the
+    model-parallel registration: each rank holds part of the source points)
+    the sums are taken over the group and the model is built as
+    ``model(*problem, cfg, group=group)``; that runs eagerly. The tracer
+    counts one registration under ``registrations_graphed`` or
+    ``registrations_eager``, by the path it took."""
     if graphs is not None and group is not None:
         raise ValueError("a registration summed over a process group runs eagerly (graphs=None)")
     if graphs is not None:
         T, Hf, converged, it, error, ncorr, fitness = graphs(model, problem, T0, cfg)
     else:
-        linearize_at, error_at, final_at = (
-            model(*problem, cfg) if group is None else model(*problem, cfg, group=group))
-        T, Hf, converged, it = solve_lm(T0, cfg, linearize_at, error_at, group)
-        error, ncorr, fitness = final_at(T)
+        T, Hf, converged, it, error, ncorr, fitness = _registration_eagerly(model, problem, T0, cfg, group)
     return RegistrationResult(
         T=T, H=Hf, error=error, converged=converged, iterations=it,
         num_correspondences=ncorr, fitness=fitness,
@@ -270,25 +284,48 @@ def run_registration(model, problem: tuple, T0: torch.Tensor, cfg: RegistrationC
 
 
 class GraphedRegistration:
-    """The registration on the card as CUDA graphs, captured on the first
-    registration of each key (the path's ``model``, the configuration, which
-    holds method, optimizer and ``use_pallas_correspondence``, and the
-    shapes and dtypes of the fixed inputs and of T0, which give B, N, M and
-    F). Each key holds two graphs over shared static inputs (the fixed
+    """The registration on the card as CUDA graphs, captured on the
+    ``capture_on``-th registration of each key (the path's ``model``, the
+    configuration, which holds method, optimizer and
+    ``use_pallas_correspondence``, and the shapes and dtypes of the fixed
+    inputs and of T0, which give B, N, M and F); the ones before run
+    eagerly. Each key holds two graphs over shared static inputs (the fixed
     inputs and the LM carry): one outer iteration (``lm_iteration``), which
     writes its next carry back into its inputs and leaves whether any
     problem is still active, and the final correspondence step. A
     registration copies its inputs in, replays the iteration reading that
     one flag after each replay (at most ``cfg.max_iterations``), then
     replays the final step. The outer iterations replayed count under the
-    tracer's ``lm_iterations``. With ``max_keys``, a new key past that many
-    drops the oldest key's graphs (and their memory). A capture failure
-    raises."""
+    tracer's ``lm_iterations``, the registration under
+    ``registrations_graphed``. With ``max_keys``, a new key past that many
+    drops the oldest key's graphs (and their memory), and the oldest of the
+    keys still counting their eager registrations. A capture failure
+    raises.
 
-    def __init__(self, max_keys: int | None = None):
+    The Engine's asynchronous loop worker never captures: while it
+    captured, torch refused the frame thread's graph replays on the card
+    ("Cannot prepare for replay during capturing stage"), and the frame's
+    thread does not wait for the worker. A capture that falls due on the
+    worker keeps a copy of its inputs and runs eagerly; ``capture_deferred``,
+    called on another thread (the Engine's frame thread, once it has merged
+    the worker's job), captures it, and the worker replays from then on.
+
+    ``shared``: callers on several threads and streams (the module's own
+    store, ``register_dispatch``'s): each registration holds
+    ``core/cuda_graph.LOCK`` from its load to its outputs' clones, so that
+    two threads never interleave on one key's static inputs, and its stream
+    waits for the last registration's."""
+
+    def __init__(self, max_keys: int | None = None, capture_on: int = 1, shared: bool = False):
         self._graphs: dict = {}
+        self._eager: dict = {}  # eager registrations so far of the keys not yet captured
+        self._deferred: dict = {}  # captures due on the loop worker: key -> (model, problem, T0, cfg)
         self.max_keys = max_keys
+        self.capture_on = capture_on
         self.reads = 0  # host reads of the active flag
+        self._lock = cuda_graph.LOCK if shared else contextlib.nullcontext()
+        self._shared = shared
+        self._stream = None  # the stream of the last registration (shared)
 
     @property
     def replays(self) -> int:
@@ -328,30 +365,67 @@ class GraphedRegistration:
         return (cuda_graph.Graphed(f"registration iteration {name}", iteration, inputs),
                 cuda_graph.Graphed(f"registration final {name}", final, inputs))
 
+    def _add(self, key, graphs) -> None:
+        if self.max_keys is not None and len(self._graphs) >= self.max_keys:
+            del self._graphs[next(iter(self._graphs))]
+        self._eager.pop(key, None)
+        self._graphs[key] = graphs
+
+    def _count_eager(self, key, seen: int) -> None:
+        self._eager[key] = seen  # the newest again
+        if self.max_keys is not None and len(self._eager) > self.max_keys:
+            old = next(iter(self._eager))
+            del self._eager[old]
+            self._deferred.pop(old, None)
+
+    def capture_deferred(self) -> int:
+        """Capture the keys whose capture fell due on the loop worker, on
+        this thread (not the worker's, with no worker job running). Returns
+        how many keys it captured."""
+        with self._lock:
+            deferred, self._deferred = self._deferred, {}
+            for key, (model, problem, T0, cfg) in deferred.items():
+                if key not in self._graphs:
+                    self._add(key, self._capture(model, problem, T0, cfg))
+            return len(deferred)
+
     def __call__(self, model, problem: tuple, T0: torch.Tensor, cfg: RegistrationConfig):
         key = (model, cfg, T0.dtype, tuple(T0.shape),
                tuple((tuple(t.shape), t.dtype) for t in problem))
-        if key not in self._graphs:
-            if self.max_keys is not None and len(self._graphs) >= self.max_keys:
-                del self._graphs[next(iter(self._graphs))]
-            self._graphs[key] = self._capture(model, problem, T0, cfg)
-        iteration, final = self._graphs[key]
-        iteration.load(*problem, *lm_init(T0, cfg))
-        run = 0
-        for i in range(cfg.max_iterations):
-            with timing.span("registration.replay"):
-                (active,) = iteration.replay()
-            run += 1
-            if i + 1 < cfg.max_iterations:
-                self.reads += 1
-                with timing.span("registration.active_read"):
-                    still = bool(active)
-                if not still:
-                    break
-        timing.count("lm_iterations", n=run)
-        out = final.replay()
-        T, _, converged, _, it, Hf = iteration.inputs[len(problem):]
-        return tuple(t.clone() for t in (T, Hf, converged, it, *out))
+        with self._lock:
+            if key not in self._graphs:
+                seen = self._eager.pop(key, 0) + 1
+                if seen < self.capture_on or cuda_build.in_worker():
+                    if seen >= self.capture_on:
+                        self._deferred[key] = (model, tuple(t.clone() for t in problem), T0.clone(), cfg)
+                    self._count_eager(key, seen)
+                    return _registration_eagerly(model, problem, T0, cfg)
+            if self._shared and T0.is_cuda:
+                stream = torch.cuda.current_stream(T0.device)
+                if self._stream is not None and self._stream != stream:
+                    stream.wait_stream(self._stream)
+                self._stream = stream
+            if key not in self._graphs:
+                self._add(key, self._capture(model, problem, T0, cfg))
+            iteration, final = self._graphs[key]
+            iteration.load(*problem, *lm_init(T0, cfg))
+            run = 0
+            for i in range(cfg.max_iterations):
+                with timing.span("registration.replay"):
+                    (active,) = iteration.replay()
+                run += 1
+                if i + 1 < cfg.max_iterations:
+                    self.reads += 1
+                    with timing.span("registration.active_read"):
+                        still = bool(active)
+                    if not still:
+                        break
+            timing.count("lm_iterations", n=run)
+            out = final.replay()
+            T, _, converged, _, it, Hf = iteration.inputs[len(problem):]
+            result = tuple(t.clone() for t in (T, Hf, converged, it, *out))
+        timing.count("registrations_graphed")
+        return result
 
 
 # ---- the exact path ---------------------------------------------------------
@@ -593,17 +667,25 @@ def prepare(xyz, mask, cfg: RegistrationConfig, device="cuda") -> PreparedCloud:
         return estimate_covariances(xyz, mask, cfg)
 
 
-# the voxel registrations' graphs for callers that hand none (the eager
-# scan-match entry on the card), made on first use
-_voxel_graphs: GraphedRegistration | None = None
-_VOXEL_GRAPH_KEYS = 4
+# the graphs of the registrations handed none (the scan-match entry, loop
+# verification) on the card, made on first use
+_graphs: GraphedRegistration | None = None
+_GRAPH_KEYS = 4
 
 
-def _eager_voxel_graphs() -> GraphedRegistration:
-    global _voxel_graphs
-    if _voxel_graphs is None:
-        _voxel_graphs = GraphedRegistration(max_keys=_VOXEL_GRAPH_KEYS)
-    return _voxel_graphs
+def _module_graphs() -> GraphedRegistration:
+    global _graphs
+    if _graphs is None:
+        _graphs = GraphedRegistration(max_keys=_GRAPH_KEYS, capture_on=2, shared=True)
+    return _graphs
+
+
+def capture_deferred() -> int:
+    """The module store's ``GraphedRegistration.capture_deferred``: the
+    captures that fell due on the loop worker, made on this thread (the
+    Engine calls it on the frame's thread once it has merged a worker job).
+    Returns how many keys it captured."""
+    return 0 if _graphs is None else _graphs.capture_deferred()
 
 
 def register_dispatch(
@@ -616,16 +698,22 @@ def register_dispatch(
     NDT_OMP / NDT_CUDA voxelize the target (``frontend/vgicp.py``): VGICP
     into fast_gicp's additive map of the target's point covariances, NDT
     into its point spread (point-to-distribution); everything else takes
-    the exact ``register`` (ICP drops the Mahalanobis metric). Eager unless
-    the caller hands it ``graphs`` (the Engine's odometry does, on the
-    card), but for a voxel method on the card, which replays the module's
-    own graphs (the newest ``_VOXEL_GRAPH_KEYS`` shapes) when handed none:
-    its outer LM iteration is ~1,300 small operations (the packed-key match
-    and the lambda tries), ~30 ms of host dispatch eagerly against a few ms
-    of device work. ``eager=True`` runs it eagerly all the same. The voxel
-    map's build is the span ``registration.voxel_map``, and the tracer's
-    ``voxel_maps`` counts the maps built (one a problem)."""
+    the exact ``register`` (ICP drops the Mahalanobis metric).
+
+    The LM replays CUDA graphs on the card: the caller's ``graphs`` (the
+    Engine's odometry hands its own), else the module's own store for every
+    method (``GraphedRegistration``, shared by threads, the newest
+    ``_GRAPH_KEYS`` keys), which runs a key's first registration eagerly,
+    captures on its second and replays from then on, so that a registration
+    made once pays no capture. Eagerly an outer LM iteration is ~1,000 (K1's
+    path) to ~1,300 (the voxel match) small operations and 10 lambda tries,
+    ~20-40 ms of host dispatch against a few ms of device work. ``eager=True``
+    and the CPU run eagerly. The voxel map's build is the span
+    ``registration.voxel_map``, and the tracer's ``voxel_maps`` counts the
+    maps built (one a problem)."""
     dev = resolve(device)
+    if graphs is None and not eager and dev.type == "cuda":
+        graphs = _module_graphs()
     source = _map(source, lambda t: t.to(dev))
     target = _map(target, lambda t: t.to(dev))
     guess = _as_tensor(guess, dev)
@@ -643,8 +731,6 @@ def register_dispatch(
         with timing.span("registration.voxel_map"):
             vm = vgicp.build_voxel_map(target.xyz, target.mask, cfg, cov=target.cov if is_vgicp else None)
         timing.count("voxel_maps", n=target.xyz.shape[0])
-        if graphs is None and not eager and dev.type == "cuda":
-            graphs = _eager_voxel_graphs()
         if is_vgicp:
             return vgicp.register_vgicp(source, vm, guess, cfg, graphs=graphs)
         return vgicp.register_ndt(source.xyz, source.mask, vm, guess, cfg,

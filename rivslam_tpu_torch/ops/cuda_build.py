@@ -144,11 +144,17 @@ _COUNT_LOCK = threading.Lock()
 _THREAD = threading.local()
 
 
+def in_worker() -> bool:
+    """Whether this thread is inside ``counting_as_worker`` (the Engine's
+    loop worker)."""
+    return getattr(_THREAD, "worker", False)
+
+
 def count_launch(fn, n: int = 1) -> None:
     """Add ``n`` launches to wrapper ``fn``'s count: ``fn.worker_launches``
     on a thread inside ``counting_as_worker``, else ``fn.launches``."""
     with _COUNT_LOCK:
-        if getattr(_THREAD, "worker", False):
+        if in_worker():
             fn.worker_launches += n
         else:
             fn.launches += n

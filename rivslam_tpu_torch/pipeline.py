@@ -58,7 +58,10 @@ frame's stream when the snapshot is taken, the frame's stream waits on one
 the worker records before a result is read, and tensors used on the other
 stream are marked with ``record_stream``; each job holds
 ``core/cuda_graph.LOCK``, which every graph capture takes too, and its
-kernel launches count as ``worker_launches``.
+kernel launches count as ``worker_launches``. The worker captures no CUDA
+graph: a verification graph that falls due there (``frontend/apdgicp``'s
+module store) is captured on the frame's thread when it merges the job
+(``apdgicp.capture_deferred``), and the worker replays it from then on.
 
 The stages are spans of the Engine's tracer, ``timers``
 (``eval/timing.StageTimers``; pass ``timers=`` to share one switched on
@@ -992,8 +995,9 @@ class Engine:
                     self._loop_results.append({"det": det, "solved": solved, "done": done})
 
     def _apply_pending_loops(self) -> bool:
-        """Merge the worker's finished detections on the frame's thread; a
-        no-op without a worker. Raises a worker exception here."""
+        """Merge the worker's finished detections on the frame's thread,
+        then capture the verification graphs the worker left; a no-op
+        without a worker. Raises a worker exception here."""
         if self._loop_thread is None:
             return False
         if self._loop_error is not None:
@@ -1013,6 +1017,10 @@ class Engine:
                         t.record_stream(main)
             if det is not None and det["epoch"] == self.state.compact_epoch:
                 applied = self._accept_loop(det, solved=r["solved"]) or applied
+        if results and self.device.type == "cuda":
+            # the verification graphs the worker left to this thread (it
+            # captures none itself); the worker is idle until the next job
+            apdgicp.capture_deferred()
         return applied
 
     def drain_loops(self, poll_s: float = 0.002) -> bool:

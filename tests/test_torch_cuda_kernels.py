@@ -20,7 +20,7 @@ import pytest
 import torch
 
 import rivslam_tpu_torch
-from rivslam_tpu_torch.core import prng
+from rivslam_tpu_torch.core import cuda_graph, prng
 from rivslam_tpu_torch.core.config import RegistrationConfig
 from rivslam_tpu_torch.frontend import apdgicp
 from rivslam_tpu_torch.io import synthetic
@@ -693,8 +693,6 @@ def test_a_failed_capture_raises(dev):
     """A host read inside a captured function fails the capture, and the
     failure raises: there is no eager fallback. The card works after it,
     torch's CUDA generator included."""
-    from rivslam_tpu_torch.core import cuda_graph
-
     x = torch.ones(4, device=dev)
     with pytest.raises(RuntimeError, match="CUDA graph capture of host-read failed"):
         cuda_graph.Graphed("host-read", lambda t: (t * float(t.sum().item()),), [x])
@@ -709,8 +707,6 @@ def _card_works_after_a_failed_capture(dev):
     generator draws (a capture that fails before it ends would leave it in
     capture mode, and ``torch.randn`` on the card would raise "Offset
     increment outside graph capture"), and a capture succeeds."""
-    from rivslam_tpu_torch.core import cuda_graph
-
     assert torch.isfinite(torch.randn(4, device=dev)).all()
     g = cuda_graph.Graphed("after a failed capture", lambda t: (t + 1.0,), [torch.ones(4, device=dev)])
     assert float(g.replay()[0].sum()) == 8.0
@@ -834,8 +830,6 @@ def test_graphed_registration_equals_its_eager_run(dev, kw):
     their captured launches at each replay); one capture for the key. The
     voxel methods (VGICP, NDT) are models of the same LM driver and replay
     the same way (no kernel of their own)."""
-    from rivslam_tpu_torch.core import cuda_graph
-
     cfg = RegistrationConfig(**kw)
     graphs = apdgicp.GraphedRegistration()
     counted = (nn_gather.fused_gather, nn_corr.fused_correspondence)
@@ -908,6 +902,100 @@ def test_a_failed_registration_capture_raises(dev):
     _card_works_after_a_failed_capture(dev)
 
 
+# ---- the module's registration store: graphs for callers that hand none ----------
+
+STORE_CASES = {
+    "fast-K1": dict(use_pallas_correspondence=True),
+    "fast-gicp-K1": dict(method="FAST_GICP", use_pallas_correspondence=True),
+    "exact-K2": dict(use_fast_path=False),
+}
+
+
+@pytest.fixture(scope="module")
+def scan_pairs():
+    """256 consecutive frame pairs of the bench course at capacity 1024
+    (the scan-match cell's shape), on the host."""
+    return synthetic.load_pairs(256, 1024, device="cpu")[:4]
+
+
+@pytest.fixture
+def fresh_store(monkeypatch):
+    """The module's store emptied for the test (and put back after)."""
+    monkeypatch.setattr(apdgicp, "_graphs", None)
+
+
+def _prepared(scan_pairs, cfg, dev, B):
+    src_xyz, src_mask, tgt_xyz, tgt_mask = (t[:B].to(dev) for t in scan_pairs)
+    src = apdgicp.prepare(src_xyz, src_mask, cfg, device=dev)
+    tgt = apdgicp.prepare(tgt_xyz, tgt_mask, cfg, device=dev)
+    return src, tgt, torch.eye(4, device=dev).expand(B, 4, 4).contiguous()
+
+
+@pytest.mark.parametrize("B", [1, 3, 256])
+@pytest.mark.parametrize("case", list(STORE_CASES))
+def test_register_dispatch_without_graphs_equals_eager(dev, scan_pairs, fresh_store, case, B):
+    """``register_dispatch`` handed no graphs on the card, three
+    registrations of one key: the first runs eagerly and captures nothing,
+    the second captures the key's two graphs once and replays them, the
+    third replays; each gives bitwise what ``eager=True`` gives, in every
+    result field (the third on another problem of the same shapes)."""
+    cfg = RegistrationConfig(**STORE_CASES[case])
+    src, tgt, guess = _prepared(scan_pairs, cfg, dev, B)
+    seen = []
+    for s, t in ((src, tgt), (src, tgt), (tgt, src)):
+        got = apdgicp.register_dispatch(s, t, guess, cfg, device=dev)
+        with cuda_graph.cusolver():
+            want = apdgicp.register_dispatch(s, t, guess, cfg, device=dev, eager=True)
+        torch.cuda.synchronize()
+        for field in dataclasses.fields(want):
+            assert torch.equal(getattr(got, field.name), getattr(want, field.name)), field.name
+        store = apdgicp._graphs
+        seen.append((len(store._graphs), store.replays, int(want.iterations.max())))
+    assert seen[0][:2] == (0, 0)
+    assert seen[1][0] == 1 and seen[1][1] == seen[1][2] + 1  # the iterations, then the final step
+    assert seen[2][0] == 1 and seen[2][1] == seen[1][1] + seen[2][2] + 1
+
+
+def test_the_store_keeps_the_newest_four_keys(dev, scan_pairs, fresh_store):
+    """Five keys (B = 1..5), each registered twice: five captures, and the
+    store holds the newest four; the oldest key's next registration runs
+    eagerly, as a first sighting."""
+    cfg = RegistrationConfig(use_pallas_correspondence=True)
+    problems = {B: _prepared(scan_pairs, cfg, dev, B) for B in range(1, 6)}
+    for B, (src, tgt, guess) in problems.items():
+        for _ in range(2):
+            apdgicp.register_dispatch(src, tgt, guess, cfg, device=dev)
+    store = apdgicp._graphs
+    assert sorted(k[3][0] for k in store._graphs) == [2, 3, 4, 5]
+    replays = store.replays
+    apdgicp.register_dispatch(*problems[1], cfg, device=dev)
+    assert store.replays == replays and sorted(k[3][0] for k in store._graphs) == [2, 3, 4, 5]
+
+
+def test_loop_verification_through_the_store_equals_its_bypass(dev, scan_pairs, fresh_store, monkeypatch):
+    """``detector.verify_loops_batch`` at B=3 (garden's ``verify_candidates``)
+    under the cp preset's registration: eager, captured, then replayed
+    through the module's store, each the same ``res``, ``ok`` and ``best``
+    as with the store bypassed."""
+    from rivslam_tpu_torch.loop import detector
+
+    cfg = presets.get("cp")
+    reg_cfg = dataclasses.replace(cfg.registration, use_pallas_correspondence=True)
+    src_xyz, src_mask, tgt_xyz, tgt_mask = (t[:3].to(dev) for t in scan_pairs)
+    yaws = torch.tensor([0.0, 0.05, -0.05], device=dev)
+    valid = torch.ones(3, dtype=torch.bool, device=dev)
+    args = (src_xyz[0], src_mask[0], tgt_xyz, tgt_mask, yaws, valid, reg_cfg, cfg.loop)
+    with monkeypatch.context() as m, cuda_graph.cusolver():
+        m.setattr(apdgicp, "_module_graphs", lambda: None)
+        want_res, want_ok, want_best = detector.verify_loops_batch(*args)
+    for _ in range(3):
+        res, ok, best = detector.verify_loops_batch(*args)
+        for field in dataclasses.fields(want_res):
+            assert torch.equal(getattr(res, field.name), getattr(want_res, field.name)), field.name
+        assert torch.equal(ok, want_ok) and int(best) == int(want_best)
+    assert len(apdgicp._graphs._graphs) == 1 and apdgicp._graphs.replays > 0
+
+
 # ---- the asynchronous loop worker beside the frame path --------------------------
 
 # tests/test_torch_engine_loop.py's loop course and configuration (66 frames
@@ -940,8 +1028,6 @@ def test_capture_waits_for_a_worker_job(dev, monkeypatch):
     """A graph capture started while a worker job runs waits for it (the
     capture lock), and both finish: the job's kernels neither fail the
     capture nor land in it."""
-    from rivslam_tpu_torch.core import cuda_graph
-
     eng = pipeline.Engine(_async(_loop_cfg()), device=dev)
     started, release = threading.Event(), threading.Event()
     done = []
@@ -991,6 +1077,58 @@ def test_worker_launches_are_counted_apart(dev):
     assert counts["async"]["fused_gather"][1] > 0 and counts["async"]["nearest_neighbor"][1] > 0
     for fn in ("fused_gather", "nearest_neighbor"):
         assert sum(counts["async"][fn]) == counts["sync"][fn][0], (fn, counts)
+
+
+def _loop_edges(eng) -> dict:
+    g = eng.state.graph
+    m = g.loop_mask
+    return {"i": g.loop_i[m], "j": g.loop_j[m], "R": g.loop_rel_R[m], "p": g.loop_rel_p[m],
+            "info": g.loop_info[m]}
+
+
+def test_async_worker_through_the_store_closes_the_inline_loops(dev, monkeypatch):
+    """The loop course with the module's store emptied before each run:
+    inline (the first verification eager, the second captures), then on the
+    async worker drained after every frame (the first two eager, the
+    second's capture made on the frame's thread as it merges the job, then
+    replays on the worker's thread and stream): the same loop edges bitwise
+    and the same K1 launches in all (frame path and worker);
+    free-running, the frame's thread goes on while the worker replays, and
+    the run ends with a loop closed and the worker's verifications
+    graphed."""
+    from rivslam_tpu_torch.eval import timing
+
+    # 100 frames: past the loop closure the pairwise check rejects more
+    # verified candidates (17 in a CPU run; at 84 frames the card verified
+    # 4 inline and 2 free-running), so the store captures and replays
+    seq, _ = synthetic.simulate_sequence(**{**LOOP_COURSE, "n_frames": 100})
+    cap = LOOP_COURSE["capacity"]
+    cfg = _loop_cfg(cap)
+    edges, regs, k1 = {}, {}, {}
+    for name, c, drain in (("inline", cfg, True), ("drained", _async(cfg), True), ("free", _async(cfg), False)):
+        monkeypatch.setattr(apdgicp, "_graphs", None)
+        tracer = timing.StageTimers().on()
+        try:
+            eng = pipeline.Engine(c, device=dev, timers=tracer)
+            nn_gather.fused_gather.launches = nn_gather.fused_gather.worker_launches = 0
+            datasets.replay(eng, seq, cap, LOOP_IMU_CAP,
+                            progress=(lambda i, n: eng.drain_loops()) if drain else None)
+            eng.drain_loops()
+        finally:
+            tracer.off()
+        totals = tracer.totals()
+        regs[name] = tuple(totals[c_].get("engine.loop_detection", 0)
+                           for c_ in ("registrations_graphed", "registrations_eager"))
+        k1[name] = nn_gather.fused_gather.launches + nn_gather.fused_gather.worker_launches
+        edges[name] = _loop_edges(eng)
+        eng.close()
+    graphed, eager = regs["inline"]
+    assert eager == 1 and graphed >= 2, regs
+    assert regs["drained"] == (graphed - 1, 2) and k1["drained"] == k1["inline"], (regs, k1)
+    for key, want in edges["inline"].items():
+        assert torch.equal(edges["drained"][key], want), key
+    assert len(edges["inline"]["i"]) >= 1
+    assert regs["free"][1] == 2 and regs["free"][0] >= 1 and len(edges["free"]["i"]) >= 1, (regs, edges["free"])
 
 
 def test_scan_to_map_graph_pair(dev):
