@@ -1265,7 +1265,7 @@ def main() -> None:
         if seed == ENGINE_SEED:
             eng, outs, eng_counts = e, o, counts
     # the frame's draw as the Engine issues it on the card: one CUDA graph replay a frame
-    draws = eng._draw_graphs[ENGINE_CAPACITY]
+    draws = eng._draw_graphs.graphs[ENGINE_CAPACITY]
     frame_draws = draws.replays
     same = all(torch.equal(eng._frame_draw(k, draw_shape).cpu().view(torch.int32),
                            prng.uniform(k, draw_shape).view(torch.int32)) for k in subkeys)

@@ -24,7 +24,7 @@ import dataclasses
 
 import torch
 
-from rivslam_tpu_torch.core import lie
+from rivslam_tpu_torch.core import cuda_graph, lie
 from rivslam_tpu_torch.core.config import BackendConfig, ImuConfig
 from rivslam_tpu_torch.core.navstate import NavState
 from rivslam_tpu_torch.eval import timing
@@ -132,13 +132,13 @@ def bias_information(imu_cfg: ImuConfig) -> tuple[float, float]:
 
 class BackendGraphs:
     """The backend's fixed-shape pieces on the card: the IMU
-    preintegration as CUDA graphs, captured for each buffer length the
-    first time it comes (a capture failure raises), and the window solve,
-    one kernel launch a frame (``solver/window.FusedSolver``; nothing is
-    captured for it)."""
+    preintegration's CUDA graphs by buffer length, each captured the first
+    time its length comes (a ``core/cuda_graph.GraphCache``), and the window
+    solve, one kernel launch a frame (``solver/window.FusedSolver``)."""
 
     def __init__(self, cfg: BackendConfig, imu_cfg: ImuConfig, dtype, device):
-        self.preintegrate = pre.GraphedPreintegrate(imu_cfg.gyr_noise, imu_cfg.acc_noise, dtype, device)
+        self.preintegrate = cuda_graph.GraphCache(
+            lambda K: pre.capture_graph(K, imu_cfg.gyr_noise, imu_cfg.acc_noise, dtype, device))
         self.solve = win.FusedSolver(cfg, bias_information(imu_cfg), dtype)
 
 
@@ -186,7 +186,12 @@ def backend_step(state: BackendState, frame: BackendFrame, cfg: BackendConfig,
         if graphs is None:
             p_int = pre.preintegrate(*imu, imu_cfg.gyr_noise, imu_cfg.acc_noise)
         else:
-            p_int = graphs.preintegrate(*imu)
+            K = frame.imu_dts.shape[0]
+            graph = graphs.preintegrate.get(K, K)
+            with timing.span("preintegrate.load"):
+                graph.load(*imu)
+            with timing.span("preintegrate.replay"):
+                p_int = pre.Preintegration(*(t.clone() for t in graph.replay()))
     eye9 = torch.eye(9, dtype=dtype, device=dev)
     preint_info = torch.linalg.inv_ex(p_int.cov + 1e-10 * eye9)[0] * cfg.inertial_weight
 

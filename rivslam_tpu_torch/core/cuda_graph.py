@@ -30,6 +30,9 @@ span, counted under ``graph_captures`` and timed under
 ``graph_capture_ms``, and each replay counts under ``graph_replays``, by
 the graph's name.
 
+When a piece becomes a graph is ``GraphCache``'s rule alone, behind the
+preintegration, the Engine's RANSAC draw and both registration stores.
+
 ``LOCK`` makes a capture safe beside a second thread (the Engine's
 asynchronous loop worker). A capture takes it for its warm-up and capture,
 and the worker for each job: under the default capture mode any CUDA call
@@ -161,3 +164,64 @@ class Graphed:
         for fn, n in self.launches.items():
             cuda_build.count_launch(fn, n)
         return self.outputs
+
+
+class GraphCache:
+    """A piece's graphs by key: ``get(key, *args)`` returns the key's graphs
+    (``capture(*args)``, a ``Graphed`` or a tuple of them), captured on the
+    key's ``capture_on``-th sight, or None before it: the caller runs eagerly.
+    At most ``MAX_KEYS`` keys are held, a new one evicting the oldest (its
+    graphs freed); the keys seen but not yet captured (``seen``) are bounded
+    so too, an evicted key losing its deferred capture.
+
+    No capture is made on the loop worker (``cuda_build.in_worker``): while
+    it captured, torch refused the frame thread's replays ("Cannot prepare
+    for replay during capturing stage"). ``get`` keeps copies of the tensors
+    among ``args`` instead, and ``capture_deferred``, called on another
+    thread, captures. A caller shared by threads holds its own lock."""
+
+    MAX_KEYS = 4
+
+    def __init__(self, capture, capture_on: int = 1):
+        self.capture = capture
+        self.capture_on = capture_on
+        self.graphs: dict = {}  # key -> graphs, oldest first
+        self.seen: dict = {}  # key -> sights so far, of the keys not yet captured
+        self.deferred: dict = {}  # key -> args of a capture due on the loop worker
+
+    @property
+    def replays(self) -> int:
+        return sum(g.replays for gs in self.graphs.values() for g in (gs if isinstance(gs, tuple) else [gs]))
+
+    def get(self, key, *args):
+        graphs = self.graphs.get(key)
+        if graphs is not None:
+            return graphs
+        seen = self.seen.pop(key, 0) + 1
+        if seen >= self.capture_on:
+            if not cuda_build.in_worker():
+                return self._add(key, self.capture(*args))
+            self.deferred[key] = tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+        self.seen[key] = seen  # the newest again
+        if len(self.seen) > self.MAX_KEYS:
+            old = next(iter(self.seen))
+            del self.seen[old]
+            self.deferred.pop(old, None)
+        return None
+
+    def capture_deferred(self) -> int:
+        """Make the captures that fell due on the loop worker, on this
+        thread (not the worker's). Returns how many it made."""
+        deferred, self.deferred = self.deferred, {}
+        due = [key for key in deferred if key not in self.graphs]
+        for key in due:
+            self._add(key, self.capture(*deferred[key]))
+        return len(due)
+
+    def _add(self, key, graphs):
+        if len(self.graphs) >= self.MAX_KEYS:
+            del self.graphs[next(iter(self.graphs))]
+        self.seen.pop(key, None)
+        self.deferred.pop(key, None)
+        self.graphs[key] = graphs
+        return graphs

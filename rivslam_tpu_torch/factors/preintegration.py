@@ -9,7 +9,8 @@ loop over the fixed IMU capacity K, the counterpart of the reference's
 (``torch.where``), as the reference's does. The host reads nothing, so the
 whole call has one fixed shape per K: on the card the engine captures it
 as a CUDA graph the first time it sees a buffer of K samples
-(``GraphedPreintegrate``) and replays that graph for every later one.
+(``capture_graph``, held by ``backend/slam.BackendGraphs``'s
+``core/cuda_graph.GraphCache``) and replays that graph for every later one.
 """
 
 from __future__ import annotations
@@ -20,7 +21,6 @@ import torch
 
 from rivslam_tpu_torch.core import cuda_graph, lie
 from rivslam_tpu_torch.core.navstate import GRAVITY, NavState
-from rivslam_tpu_torch.eval import timing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,43 +151,16 @@ def preintegrate(
     return p
 
 
-class GraphedPreintegrate:
-    """``preintegrate`` on the card as CUDA graphs, one per IMU buffer
-    length: the whole masked loop over K samples is captured the first time
-    a buffer of K samples comes, and every call copies the frame's buffers
-    into that graph's static inputs and replays it."""
-
-    def __init__(self, noise_gyro: float, noise_acc: float, dtype, device):
-        self.noise = (noise_gyro, noise_acc)
-        self.dtype, self.device = dtype, device
-        self._graphs: dict[int, cuda_graph.Graphed] = {}
-
-    @property
-    def replays(self) -> int:
-        return sum(g.replays for g in self._graphs.values())
-
-    def _capture(self, capacity: int) -> cuda_graph.Graphed:
-        kw = dict(dtype=self.dtype, device=self.device)
-        inputs = [
-            torch.full((capacity,), 0.005, **kw), torch.zeros((capacity, 3), **kw),
-            torch.zeros((capacity, 3), **kw), torch.ones(capacity, dtype=torch.bool, device=self.device),
-            torch.zeros(3, **kw), torch.zeros(3, **kw),
-        ]
-        return cuda_graph.Graphed(
-            f"preintegrate[{capacity}]",
-            lambda *a: preintegrate(*a, *self.noise).astuple(),
-            inputs,
-        )
-
-    def __call__(self, dts, acc, gyr, mask, bg, ba) -> Preintegration:
-        K = dts.shape[0]
-        if K not in self._graphs:
-            self._graphs[K] = self._capture(K)
-        graph = self._graphs[K]
-        with timing.span("preintegrate.load"):
-            graph.load(dts, acc, gyr, mask, bg, ba)
-        with timing.span("preintegrate.replay"):
-            return Preintegration(*(t.clone() for t in graph.replay()))
+def capture_graph(capacity: int, noise_gyro: float, noise_acc: float, dtype, device) -> cuda_graph.Graphed:
+    """``preintegrate`` over buffers of ``capacity`` samples as one CUDA
+    graph: static inputs (dts, acc, gyr, mask, bg, ba), outputs
+    ``Preintegration``'s fields."""
+    kw = dict(dtype=dtype, device=device)
+    inputs = [torch.full((capacity,), 0.005, **kw), torch.zeros((capacity, 3), **kw),
+              torch.zeros((capacity, 3), **kw), torch.ones(capacity, dtype=torch.bool, device=device),
+              torch.zeros(3, **kw), torch.zeros(3, **kw)]
+    return cuda_graph.Graphed(f"preintegrate[{capacity}]",
+                              lambda *a: preintegrate(*a, noise_gyro, noise_acc).astuple(), inputs)
 
 
 def delta_rotation(p: Preintegration, bg: torch.Tensor) -> torch.Tensor:

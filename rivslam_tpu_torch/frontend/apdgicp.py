@@ -27,7 +27,8 @@ give. ``solve_lm`` runs the iterations eagerly and reads one flag from the
 device after each; ``GraphedRegistration`` replays them as CUDA graphs on
 the card (the Engine's odometry, and through ``register_dispatch`` every
 registration handed no graphs: the scan-match entry, loop verification),
-reading the same flag.
+reading the same flag; when a key's graphs are captured is
+``core/cuda_graph.GraphCache``'s rule.
 
 VGICP and NDT (``frontend/vgicp.py``) are models for the same LM driver,
 reached through ``register_dispatch``.
@@ -54,7 +55,7 @@ from rivslam_tpu_torch.core.device import resolve
 from rivslam_tpu_torch.core.pointcloud import SENTINEL
 from rivslam_tpu_torch.dist.mesh import all_sum
 from rivslam_tpu_torch.eval import timing
-from rivslam_tpu_torch.ops import cuda_build, eig3, knn, nn_corr
+from rivslam_tpu_torch.ops import eig3, knn, nn_corr
 
 _FAST_METHODS = ("FAST_APDGICP", "FAST_GICP", "GICP", "GICP_OMP")
 _VGICP_METHODS = ("VGICP", "FAST_VGICP", "FAST_VGICP_CUDA")
@@ -284,31 +285,19 @@ def run_registration(model, problem: tuple, T0: torch.Tensor, cfg: RegistrationC
 
 
 class GraphedRegistration:
-    """The registration on the card as CUDA graphs, captured on the
-    ``capture_on``-th registration of each key (the path's ``model``, the
-    configuration, which holds method, optimizer and
-    ``use_pallas_correspondence``, and the shapes and dtypes of the fixed
-    inputs and of T0, which give B, N, M and F); the ones before run
-    eagerly. Each key holds two graphs over shared static inputs (the fixed
-    inputs and the LM carry): one outer iteration (``lm_iteration``), which
-    writes its next carry back into its inputs and leaves whether any
-    problem is still active, and the final correspondence step. A
+    """The registration on the card as CUDA graphs, held by a
+    ``core/cuda_graph.GraphCache`` (``cache``, capturing on a key's
+    ``capture_on``-th sight; the sights before run eagerly). The key is the
+    path's ``model``, the configuration (method, optimizer,
+    ``use_pallas_correspondence``) and the shapes and dtypes of the fixed
+    inputs and of T0 (B, N, M, F). Each key holds two graphs over shared
+    static inputs (the fixed inputs and the LM carry): one outer iteration
+    (``lm_iteration``), which writes its next carry back into its inputs and
+    leaves whether any problem is still active, and the final step. A
     registration copies its inputs in, replays the iteration reading that
-    one flag after each replay (at most ``cfg.max_iterations``), then
-    replays the final step. The outer iterations replayed count under the
-    tracer's ``lm_iterations``, the registration under
-    ``registrations_graphed``. With ``max_keys``, a new key past that many
-    drops the oldest key's graphs (and their memory), and the oldest of the
-    keys still counting their eager registrations. A capture failure
-    raises.
-
-    The Engine's asynchronous loop worker never captures: while it
-    captured, torch refused the frame thread's graph replays on the card
-    ("Cannot prepare for replay during capturing stage"), and the frame's
-    thread does not wait for the worker. A capture that falls due on the
-    worker keeps a copy of its inputs and runs eagerly; ``capture_deferred``,
-    called on another thread (the Engine's frame thread, once it has merged
-    the worker's job), captures it, and the worker replays from then on.
+    flag after each replay (at most ``cfg.max_iterations``), then the final
+    step; the tracer counts the iterations under ``lm_iterations``, the
+    registration under ``registrations_graphed``.
 
     ``shared``: callers on several threads and streams (the module's own
     store, ``register_dispatch``'s): each registration holds
@@ -316,12 +305,8 @@ class GraphedRegistration:
     two threads never interleave on one key's static inputs, and its stream
     waits for the last registration's."""
 
-    def __init__(self, max_keys: int | None = None, capture_on: int = 1, shared: bool = False):
-        self._graphs: dict = {}
-        self._eager: dict = {}  # eager registrations so far of the keys not yet captured
-        self._deferred: dict = {}  # captures due on the loop worker: key -> (model, problem, T0, cfg)
-        self.max_keys = max_keys
-        self.capture_on = capture_on
+    def __init__(self, capture_on: int = 1, shared: bool = False):
+        self.cache = cuda_graph.GraphCache(self._capture, capture_on)
         self.reads = 0  # host reads of the active flag
         self._lock = cuda_graph.LOCK if shared else contextlib.nullcontext()
         self._shared = shared
@@ -329,14 +314,14 @@ class GraphedRegistration:
 
     @property
     def replays(self) -> int:
-        return sum(g.replays for pair in self._graphs.values() for g in pair)
+        return self.cache.replays
 
     def launches_by_shape(self) -> dict:
         """Kernel launches credited through the replays so far, by
         registration shape (B, N, M): {shape: {"K1": n, "K2": n}}."""
         names = {"fused_gather": "K1", "fused_correspondence": "K2"}
         out: dict = {}
-        for key, pair in self._graphs.items():
+        for key, pair in self.cache.graphs.items():
             shapes = key[-1]  # the fixed inputs': source xyz first, target mask fifth
             shape = (shapes[0][0][0], shapes[0][0][1], shapes[4][0][1])
             counts = out.setdefault(shape, {})
@@ -346,7 +331,8 @@ class GraphedRegistration:
                     counts[name] = counts.get(name, 0) + n * g.replays
         return out
 
-    def _capture(self, model, problem, T0, cfg):
+    @staticmethod
+    def _capture(model, cfg, T0, *problem):
         n = len(problem)
         inputs = [t.clone() for t in (*problem, *lm_init(T0, cfg))]
 
@@ -365,49 +351,24 @@ class GraphedRegistration:
         return (cuda_graph.Graphed(f"registration iteration {name}", iteration, inputs),
                 cuda_graph.Graphed(f"registration final {name}", final, inputs))
 
-    def _add(self, key, graphs) -> None:
-        if self.max_keys is not None and len(self._graphs) >= self.max_keys:
-            del self._graphs[next(iter(self._graphs))]
-        self._eager.pop(key, None)
-        self._graphs[key] = graphs
-
-    def _count_eager(self, key, seen: int) -> None:
-        self._eager[key] = seen  # the newest again
-        if self.max_keys is not None and len(self._eager) > self.max_keys:
-            old = next(iter(self._eager))
-            del self._eager[old]
-            self._deferred.pop(old, None)
-
     def capture_deferred(self) -> int:
-        """Capture the keys whose capture fell due on the loop worker, on
-        this thread (not the worker's, with no worker job running). Returns
-        how many keys it captured."""
+        """The cache's ``capture_deferred``, under the store's lock."""
         with self._lock:
-            deferred, self._deferred = self._deferred, {}
-            for key, (model, problem, T0, cfg) in deferred.items():
-                if key not in self._graphs:
-                    self._add(key, self._capture(model, problem, T0, cfg))
-            return len(deferred)
+            return self.cache.capture_deferred()
 
     def __call__(self, model, problem: tuple, T0: torch.Tensor, cfg: RegistrationConfig):
         key = (model, cfg, T0.dtype, tuple(T0.shape),
                tuple((tuple(t.shape), t.dtype) for t in problem))
         with self._lock:
-            if key not in self._graphs:
-                seen = self._eager.pop(key, 0) + 1
-                if seen < self.capture_on or cuda_build.in_worker():
-                    if seen >= self.capture_on:
-                        self._deferred[key] = (model, tuple(t.clone() for t in problem), T0.clone(), cfg)
-                    self._count_eager(key, seen)
-                    return _registration_eagerly(model, problem, T0, cfg)
+            graphs = self.cache.get(key, model, cfg, T0, *problem)
+            if graphs is None:
+                return _registration_eagerly(model, problem, T0, cfg)
             if self._shared and T0.is_cuda:
                 stream = torch.cuda.current_stream(T0.device)
                 if self._stream is not None and self._stream != stream:
                     stream.wait_stream(self._stream)
                 self._stream = stream
-            if key not in self._graphs:
-                self._add(key, self._capture(model, problem, T0, cfg))
-            iteration, final = self._graphs[key]
+            iteration, final = graphs
             iteration.load(*problem, *lm_init(T0, cfg))
             run = 0
             for i in range(cfg.max_iterations):
@@ -670,21 +631,20 @@ def prepare(xyz, mask, cfg: RegistrationConfig, device="cuda") -> PreparedCloud:
 # the graphs of the registrations handed none (the scan-match entry, loop
 # verification) on the card, made on first use
 _graphs: GraphedRegistration | None = None
-_GRAPH_KEYS = 4
 
 
 def _module_graphs() -> GraphedRegistration:
     global _graphs
     if _graphs is None:
-        _graphs = GraphedRegistration(max_keys=_GRAPH_KEYS, capture_on=2, shared=True)
+        _graphs = GraphedRegistration(capture_on=2, shared=True)
     return _graphs
 
 
 def capture_deferred() -> int:
-    """The module store's ``GraphedRegistration.capture_deferred``: the
-    captures that fell due on the loop worker, made on this thread (the
-    Engine calls it on the frame's thread once it has merged a worker job).
-    Returns how many keys it captured."""
+    """The module store's ``capture_deferred``: the captures that fell due
+    on the loop worker, made on this thread (the Engine calls it on the
+    frame's thread once it has merged a worker job). Returns how many it
+    made."""
     return 0 if _graphs is None else _graphs.capture_deferred()
 
 
@@ -702,10 +662,10 @@ def register_dispatch(
 
     The LM replays CUDA graphs on the card: the caller's ``graphs`` (the
     Engine's odometry hands its own), else the module's own store for every
-    method (``GraphedRegistration``, shared by threads, the newest
-    ``_GRAPH_KEYS`` keys), which runs a key's first registration eagerly,
-    captures on its second and replays from then on, so that a registration
-    made once pays no capture. Eagerly an outer LM iteration is ~1,000 (K1's
+    method (``GraphedRegistration``, shared by threads; its
+    ``core/cuda_graph.GraphCache`` holds the newest four keys), which runs a
+    key's first registration eagerly, captures on its second and replays
+    from then on, so that a registration made once pays no capture. Eagerly an outer LM iteration is ~1,000 (K1's
     path) to ~1,300 (the voxel match) small operations and 10 lambda tries,
     ~20-40 ms of host dispatch against a few ms of device work. ``eager=True``
     and the CPU run eagerly. The voxel map's build is the span

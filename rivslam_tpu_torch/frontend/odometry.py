@@ -4,8 +4,9 @@
 ``state', out = step(state, source, ...)``: guess composition, the
 registration (``register_dispatch`` with one problem; K1 runs inside it
 when ``use_pallas_correspondence`` is on, K2 on the exact path; on the
-card it replays the Engine's ``GraphedRegistration``), transform thresholding,
-keyframe gating and the target swap. Reference quirks kept:
+card it replays the Engine's ``GraphedRegistration``, whose
+``core/cuda_graph.GraphCache`` captures on the first registration),
+transform thresholding, keyframe gating and the target swap. Reference quirks kept:
 - the ego-velocity translation prior keeps its previous value when the new
   delta exceeds max_egovel_cum (:369-371);
 - max_acceptable_angle is compared in radians against a degrees-valued

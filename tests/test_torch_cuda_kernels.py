@@ -476,16 +476,8 @@ def test_graphed_backend_equals_its_eager_run(dev, optimizer, use_schur):
     bk = dataclasses.replace(config.BackendConfig(), optimizer=optimizer, use_schur=use_schur)
     imu = config.ImuConfig()
     graphs = slam.BackendGraphs(bk, imu, torch.float32, dev)
-    graphed, fused = graphs.preintegrate, graphs.solve
+    fused = graphs.solve
     bias_info, iters = slam.bias_information(imu), []
-
-    def preintegrate(*args):
-        got = graphed(*args)
-        with cuda_graph.cusolver():
-            want = pre.preintegrate(*args, imu.gyr_noise, imu.acc_noise)
-        for a, b in zip(got.astuple(), want.astuple()):
-            assert torch.equal(a, b)
-        return got
 
     def solve(x0, f):
         got = fused(x0, f)
@@ -498,7 +490,7 @@ def test_graphed_backend_equals_its_eager_run(dev, optimizer, use_schur):
         iters.append(it_k)
         return got
 
-    graphs.preintegrate, graphs.solve = preintegrate, solve
+    graphs.solve = solve
     st = slam.init_state(bk, imu, 192, torch.float32, dev)
     launches = window.solve_batched.launches
     frames = _backend_frames()
@@ -506,9 +498,15 @@ def test_graphed_backend_equals_its_eager_run(dev, optimizer, use_schur):
         frame = slam.BackendFrame(**{
             k: torch.as_tensor(v, dtype=torch.bool if v.dtype == bool else torch.float32, device=dev)
             for k, v in fr.items()})
+        prev = st
         st, out = slam.backend_step(st, frame, bk, imu, graphs)
         assert out.iterations == iters[-1]
-    assert fused.replays == len(frames) and graphed.replays == len(frames) and max(iters) >= 2
+        with cuda_graph.cusolver():
+            want = pre.preintegrate(frame.imu_dts, frame.imu_acc, frame.imu_gyr, frame.imu_mask,
+                                    prev.nav.bg[-1], prev.nav.ba[-1], imu.gyr_noise, imu.acc_noise)
+        for a, b in zip(st.preint.astuple(), want.astuple()):
+            assert torch.equal(a[-1], b)  # the frame's graph replay, bitwise the eager function
+    assert fused.replays == len(frames) and graphs.preintegrate.replays == len(frames) and max(iters) >= 2
     assert window.solve_batched.launches - launches == 2 * len(frames)  # the Engine's and the check's
 
 
@@ -652,7 +650,7 @@ def test_graphed_preintegration_equals_eager(dev):
     gives; a buffer of another length gets a graph of its own."""
     from rivslam_tpu_torch.factors import preintegration as pre
 
-    g = pre.GraphedPreintegrate(1e-3, 1e-2, torch.float32, dev)
+    g = cuda_graph.GraphCache(lambda K: pre.capture_graph(K, 1e-3, 1e-2, torch.float32, dev))
     rng = np.random.default_rng(3)
     for frame, K in enumerate((40, 40, 40, 40, 20, 20, 40)):
         mask = rng.uniform(size=K) < 0.8
@@ -662,11 +660,13 @@ def test_graphed_preintegration_equals_eager(dev):
             rng.normal(size=(K, 3)) * 0.2)]
         args += [torch.as_tensor(mask, device=dev)]
         args += [torch.as_tensor(rng.normal(size=3) * 0.01, dtype=torch.float32, device=dev) for _ in range(2)]
-        got = g(*args)
+        graph = g.get(K, K)
+        graph.load(*args)
+        got = pre.Preintegration(*(t.clone() for t in graph.replay()))
         want = pre.preintegrate(*args, 1e-3, 1e-2)
         for a, b in zip(got.astuple(), want.astuple()):
             assert torch.equal(a, b)
-    assert sorted(g._graphs) == [20, 40] and g.replays == 7
+    assert sorted(g.graphs) == [20, 40] and g.replays == 7
 
 
 def test_engine_replays_graphs_and_counts_its_kernels(dev):
@@ -848,7 +848,7 @@ def test_graphed_registration_equals_its_eager_run(dev, kw):
         assert graphed == eager
         if cfg.use_pallas_correspondence or not cfg.use_fast_path:
             assert sum(eager) == int(want.iterations.max()) + 1
-    assert len(graphs._graphs) == 1 and graphs.replays > 5
+    assert len(graphs.cache.graphs) == 1 and graphs.replays > 5
 
 
 def test_engine_replays_the_registration_and_counts_k1_through_it(dev):
@@ -867,8 +867,8 @@ def test_engine_replays_the_registration_and_counts_k1_through_it(dev):
     k1 = nn_gather.fused_gather.launches
     datasets.replay(eng, seq, 1024, 64)
     reg = eng.reg_graphs
-    assert len(reg._graphs) == 1
-    ((iteration, final),) = reg._graphs.values()
+    assert len(reg.cache.graphs) == 1
+    ((iteration, final),) = reg.cache.graphs.values()
     assert final.replays == 3  # frames 1..3 register; frame 0 starts the odometry
     assert iteration.launches == {nn_gather.fused_gather: 1}
     assert nn_gather.fused_gather.launches - k1 == iteration.replays + final.replays
@@ -950,7 +950,7 @@ def test_register_dispatch_without_graphs_equals_eager(dev, scan_pairs, fresh_st
         for field in dataclasses.fields(want):
             assert torch.equal(getattr(got, field.name), getattr(want, field.name)), field.name
         store = apdgicp._graphs
-        seen.append((len(store._graphs), store.replays, int(want.iterations.max())))
+        seen.append((len(store.cache.graphs), store.replays, int(want.iterations.max())))
     assert seen[0][:2] == (0, 0)
     assert seen[1][0] == 1 and seen[1][1] == seen[1][2] + 1  # the iterations, then the final step
     assert seen[2][0] == 1 and seen[2][1] == seen[1][1] + seen[2][2] + 1
@@ -966,10 +966,10 @@ def test_the_store_keeps_the_newest_four_keys(dev, scan_pairs, fresh_store):
         for _ in range(2):
             apdgicp.register_dispatch(src, tgt, guess, cfg, device=dev)
     store = apdgicp._graphs
-    assert sorted(k[3][0] for k in store._graphs) == [2, 3, 4, 5]
+    assert sorted(k[3][0] for k in store.cache.graphs) == [2, 3, 4, 5]
     replays = store.replays
     apdgicp.register_dispatch(*problems[1], cfg, device=dev)
-    assert store.replays == replays and sorted(k[3][0] for k in store._graphs) == [2, 3, 4, 5]
+    assert store.replays == replays and sorted(k[3][0] for k in store.cache.graphs) == [2, 3, 4, 5]
 
 
 def test_loop_verification_through_the_store_equals_its_bypass(dev, scan_pairs, fresh_store, monkeypatch):
@@ -993,7 +993,7 @@ def test_loop_verification_through_the_store_equals_its_bypass(dev, scan_pairs, 
         for field in dataclasses.fields(want_res):
             assert torch.equal(getattr(res, field.name), getattr(want_res, field.name)), field.name
         assert torch.equal(ok, want_ok) and int(best) == int(want_best)
-    assert len(apdgicp._graphs._graphs) == 1 and apdgicp._graphs.replays > 0
+    assert len(apdgicp._graphs.cache.graphs) == 1 and apdgicp._graphs.replays > 0
 
 
 # ---- the asynchronous loop worker beside the frame path --------------------------
@@ -1201,7 +1201,7 @@ def test_engine_frame_draw_is_the_cpu_draw(dev):
     for k in keys:
         on_card = eng._frame_draw(k, (128, 1024)).cpu()
         assert torch.equal(on_card.view(torch.int32), prng.uniform(k, (128, 1024)).view(torch.int32))
-    assert eng._draw_graphs[1024].replays == len(keys)
+    assert eng._draw_graphs.graphs[1024].replays == len(keys)
 
 
 @pytest.fixture

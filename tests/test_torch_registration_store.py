@@ -1,8 +1,9 @@
-"""The registration's graph store on the CPU (``frontend/apdgicp``):
-``GraphedRegistration``'s capture rule (a key's ``capture_on``-th
-registration captures, the ones before run eagerly, later ones replay), its
-bound on keys, the tracer's ``registrations_graphed`` /
-``registrations_eager`` counters, and that the CPU path makes no store.
+"""The capture rule on the CPU (``core/cuda_graph.GraphCache``) through its
+users: ``frontend/apdgicp.GraphedRegistration`` (a key's ``capture_on``-th
+registration captures, the ones before run eagerly, later ones replay), the
+bound on keys, the loop worker's deferred capture, the tracer's
+``registrations_graphed`` / ``registrations_eager`` counters, that the CPU
+path makes no store, and the backend's preintegration cache.
 
 CUDA graphs exist only on the card, so here ``core/cuda_graph.Graphed`` is
 replaced by a stand-in whose replay runs the captured function eagerly over
@@ -13,17 +14,21 @@ are in tests/test_torch_cuda_kernels.py.
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 from torch_shared_cache import release_xla_executables  # noqa: F401  (and one torch thread a process)
 
+from rivslam_tpu_torch.backend import slam
 from rivslam_tpu_torch.core import cuda_graph
-from rivslam_tpu_torch.core.config import LoopConfig, RegistrationConfig
+from rivslam_tpu_torch.core.config import BackendConfig, ImuConfig, LoopConfig, RegistrationConfig
 from rivslam_tpu_torch.eval import timing
 from rivslam_tpu_torch.eval.timing import StageTimers
+from rivslam_tpu_torch.factors import preintegration as pre
 from rivslam_tpu_torch.frontend import apdgicp, apdgicp_fast
 from rivslam_tpu_torch.io import synthetic
 from rivslam_tpu_torch.loop import detector
+from rivslam_tpu_torch.ops import cuda_build
 
 CPU = torch.device("cpu")
 CAPACITY = 64
@@ -98,7 +103,7 @@ def test_second_registration_of_a_key_captures_and_later_ones_replay(clouds, eag
     cfg = RegistrationConfig(**CASES[case])
     src, tgt, guess = _problem(clouds, cfg, 2)
     want = apdgicp.register_dispatch(src, tgt, guess, cfg, device=CPU)
-    store = apdgicp.GraphedRegistration(max_keys=4, capture_on=2, shared=True)
+    store = apdgicp.GraphedRegistration(capture_on=2, shared=True)
     made, replays = [], []
     for _ in range(3):
         with timing.span("caller"):
@@ -108,49 +113,54 @@ def test_second_registration_of_a_key_captures_and_later_ones_replay(clouds, eag
         replays.append(store.replays)
     assert made == [0, 2, 2]
     assert replays[0] == 0 and replays[2] - replays[1] == replays[1] > 0
-    assert len(store._graphs) == 1 and store._eager == {}
+    assert len(store.cache.graphs) == 1 and store.cache.seen == {}
     totals = tracer.totals()
     assert totals["registrations_graphed"] == {"caller": 2}
     # one eager run under the span, the other outside any (``want``)
     assert totals["registrations_eager"] == {"caller": 1, timing.OUTSIDE: 1}
 
 
-def test_a_new_key_past_max_keys_evicts_the_oldest(clouds, eager_graphs):
-    """Five keys (three batch sizes of the fast path, two of the exact
-    path) through a store of 4: the fifth capture drops the oldest key's
-    graphs, and that key's next registration runs eagerly again, as a first
-    sighting."""
-    store = apdgicp.GraphedRegistration(max_keys=4, capture_on=2)
+def _five_keys(clouds):
+    """Five registration keys: three batch sizes of the fast path, two of
+    the exact path, one more than ``GraphCache.MAX_KEYS``."""
     keys = [(RegistrationConfig(**CASES["fast-K1"]), B) for B in (1, 2, 3)]
     keys += [(RegistrationConfig(**CASES["exact-K2"]), B) for B in (1, 2)]
-    problems = [(cfg, _problem(clouds, cfg, B)) for cfg, B in keys]
+    assert len(keys) == cuda_graph.GraphCache.MAX_KEYS + 1
+    return keys, [(cfg, _problem(clouds, cfg, B)) for cfg, B in keys]
+
+
+def test_a_new_key_past_max_keys_evicts_the_oldest(clouds, eager_graphs):
+    """Five keys through a cache of 4: the fifth capture drops the oldest
+    key's graphs, and that key's next registration runs eagerly again, as a
+    first sighting."""
+    store = apdgicp.GraphedRegistration(capture_on=2)
+    keys, problems = _five_keys(clouds)
     for cfg, (src, tgt, guess) in problems:
         for _ in range(2):
             apdgicp.register_dispatch(src, tgt, guess, cfg, device=CPU, graphs=store)
     assert len(eager_graphs) == 2 * 5
-    assert len(store._graphs) == 4
-    held = {(k[1], k[3][0]) for k in store._graphs}
+    assert len(store.cache.graphs) == 4
+    held = {(k[1], k[3][0]) for k in store.cache.graphs}
     assert (keys[0][0], 1) not in held and (keys[1][0], 2) in held
     cfg, (src, tgt, guess) = problems[0]
     apdgicp.register_dispatch(src, tgt, guess, cfg, device=CPU, graphs=store)
     assert len(eager_graphs) == 10  # eager again: no capture
     apdgicp.register_dispatch(src, tgt, guess, cfg, device=CPU, graphs=store)
-    assert len(eager_graphs) == 12 and len(store._graphs) == 4
+    assert len(eager_graphs) == 12 and len(store.cache.graphs) == 4
 
 
 def test_keys_seen_once_are_bounded_too(clouds, eager_graphs):
-    """The keys counted but not yet captured are held to ``max_keys``, the
-    oldest dropped: a key seen once, then pushed out by newer ones, starts
-    over."""
-    cfg = RegistrationConfig(**CASES["fast-K1"])
-    store = apdgicp.GraphedRegistration(max_keys=2, capture_on=2)
-    problems = [_problem(clouds, cfg, B) for B in (1, 2, 3)]
-    for src, tgt, guess in problems:
+    """The keys counted but not yet captured are held to ``MAX_KEYS``, the
+    oldest dropped: a key seen once, then pushed out by four newer ones,
+    starts over."""
+    store = apdgicp.GraphedRegistration(capture_on=2)
+    _, problems = _five_keys(clouds)
+    for cfg, (src, tgt, guess) in problems:
         apdgicp.register_dispatch(src, tgt, guess, cfg, device=CPU, graphs=store)
-    assert len(store._eager) == 2 and not eager_graphs
-    src, tgt, guess = problems[0]
+    assert len(store.cache.seen) == 4 and not eager_graphs
+    cfg, (src, tgt, guess) = problems[0]
     apdgicp.register_dispatch(src, tgt, guess, cfg, device=CPU, graphs=store)
-    assert not eager_graphs  # B=1 was dropped: this is its first sighting again
+    assert not eager_graphs  # fast B=1 was dropped: this is its first sighting again
     apdgicp.register_dispatch(src, tgt, guess, cfg, device=CPU, graphs=store)
     assert len(eager_graphs) == 2
 
@@ -160,19 +170,17 @@ def test_the_loop_worker_defers_its_capture(clouds, eager_graphs, tracer):
     the registration runs eagerly and keeps its inputs; ``capture_deferred``
     on another thread captures it, and the worker replays from then on,
     the eager run's bits each time."""
-    from rivslam_tpu_torch.ops import cuda_build
-
     cfg = RegistrationConfig(**CASES["fast-K1"])
     src, tgt, guess = _problem(clouds, cfg, 3)
     want = apdgicp.register_dispatch(src, tgt, guess, cfg, device=CPU)
-    store = apdgicp.GraphedRegistration(max_keys=4, capture_on=2, shared=True)
+    store = apdgicp.GraphedRegistration(capture_on=2, shared=True)
     got = []
     with cuda_build.counting_as_worker():
         for _ in range(3):
             got.append(apdgicp.register_dispatch(src, tgt, guess, cfg, device=CPU, graphs=store))
-    assert not eager_graphs and len(store._deferred) == 1 and store.replays == 0
+    assert not eager_graphs and len(store.cache.deferred) == 1 and store.replays == 0
     assert store.capture_deferred() == 1 and len(eager_graphs) == 2
-    assert store._deferred == {} and store._eager == {} and store.capture_deferred() == 0
+    assert store.cache.deferred == {} and store.cache.seen == {} and store.capture_deferred() == 0
     with cuda_build.counting_as_worker():
         got.append(apdgicp.register_dispatch(src, tgt, guess, cfg, device=CPU, graphs=store))
     assert len(eager_graphs) == 2 and store.replays > 0
@@ -237,3 +245,50 @@ def test_a_group_registration_stays_eager_and_counts(clouds, tracer):
                                  apdgicp.GraphedRegistration(), group=object())
     apdgicp.run_registration(apdgicp_fast.fast_model, apdgicp_fast.fast_problem(src, tgt), guess, cfg)
     assert tracer.totals()["registrations_eager"] == {timing.OUTSIDE: 1}
+
+
+def _imu_buffers(K, seed):
+    rng = np.random.default_rng(seed)
+    mask = rng.uniform(size=K) < 0.8
+    mask[K - 3:] = False
+    return [torch.as_tensor(rng.uniform(0.004, 0.006, K), dtype=torch.float32),
+            torch.as_tensor(rng.normal(size=(K, 3)) * 0.3 + [0, 0, 9.8], dtype=torch.float32),
+            torch.as_tensor(rng.normal(size=(K, 3)) * 0.2, dtype=torch.float32), torch.as_tensor(mask),
+            *(torch.as_tensor(rng.normal(size=3) * 0.01, dtype=torch.float32) for _ in range(2))]
+
+
+def test_backend_preintegration_captures_one_graph_per_buffer_length(eager_graphs, tracer):
+    """``BackendGraphs.preintegrate``: a buffer length's graph is captured on
+    its first sight and replayed for every later buffer of that length, bit
+    for bit what ``pre.preintegrate`` gives (the CPU twin of the card's
+    ``test_graphed_preintegration_equals_eager``)."""
+    imu = ImuConfig()
+    graphs = slam.BackendGraphs(BackendConfig(), imu, torch.float32, CPU)
+    for frame, K in enumerate((40, 40, 20, 40, 20)):
+        args = _imu_buffers(K, frame)
+        graph = graphs.preintegrate.get(K, K)
+        graph.load(*args)
+        got = pre.Preintegration(*graph.replay())
+        want = pre.preintegrate(*args, imu.gyr_noise, imu.acc_noise)
+        for a, b in zip(got.astuple(), want.astuple()):
+            assert torch.equal(a, b)
+    assert eager_graphs == ["preintegrate[40]", "preintegrate[20]"]
+    assert sorted(graphs.preintegrate.graphs) == [20, 40] and graphs.preintegrate.replays == 5
+
+
+def test_a_capture_due_on_the_worker_is_deferred_for_any_piece():
+    """A ``GraphCache`` whose capture is not a registration: a capture that
+    falls due inside ``counting_as_worker`` is not made and keeps copies of
+    the tensor arguments; ``capture_deferred`` on another thread makes it,
+    with the values the worker saw, and the key is then held."""
+    made = []
+    cache = cuda_graph.GraphCache(lambda n, t: made.append((n, t)) or ("graph", n), capture_on=2)
+    t = torch.arange(3.0)
+    assert cache.get("k", 3, t) is None and cache.seen == {"k": 1}
+    with cuda_build.counting_as_worker():
+        assert cache.get("k", 3, t) is None
+    t.add_(1.0)  # the kept copy is the worker's
+    assert made == [] and list(cache.deferred) == ["k"]
+    assert cache.capture_deferred() == 1 and cache.capture_deferred() == 0
+    assert made[0][0] == 3 and torch.equal(made[0][1], torch.arange(3.0))
+    assert cache.get("k") == ("graph", 3) and cache.seen == {} and cache.deferred == {}
